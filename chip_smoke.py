@@ -8,15 +8,21 @@ Phases, each on lines of its own; any failure exits non-zero:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every ``dreamllm_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, in bf16, at the shapes the main path gives it and at the
-   decoder's causal/GQA/segment shapes, timed beside the plain version,
-   PyTorch's own library call and the card's bound;
-4. small reference: a tiny random DreamLLM document on the card agrees
-   with the same document on the CPU;
-5. main path: a random full-width DreamLLM-7B + SD-2.1 (bf16, seeded,
-   built on the card) writes one interleaved document with two 512x512
-   images; the flash kernel's launch count over that run is checked.
+3. kernels: each hand-written kernel (flash-attention forward and backward,
+   fused 8-bit AdamW) against its plain PyTorch version on the card, in
+   bf16, at the shapes the main paths give it, timed beside the plain
+   version, PyTorch's own library call where there is one, and the card's
+   bound;
+4. small reference: a tiny random DreamLLM document and a tiny train step
+   on the card agree with the same on the CPU;
+5. main path, serving: a random full-width DreamLLM-7B + SD-2.1 (bf16,
+   seeded, built on the card) writes one interleaved document with two
+   512x512 images; the flash kernel's launch count over that run is checked;
+6. main path, training: the same parameters take three joint train steps
+   (LM + diffusion loss, CLIP/UNet/VAE frozen, 8-bit AdamW with the fused
+   kernel, full remat) through ``Trainer.train`` at batch 2 x 2048; losses,
+   updates, frozen parameters and the three kernels' launch counts are
+   checked, and one full optimizer update is timed fused and unfused.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -64,6 +70,29 @@ OUT_ULPS = 4
 OUT_TOL_CAP = 2e-2
 OUT_REL_RMS = 1e-2
 LSE_TOL = 1e-3
+
+# Backward kernel vs plain version, both bf16 on the card from the same
+# (q, k, v, dO, O, LSE). Both round P and dS to bf16 before their products
+# and the results to bf16; the kernel takes P in base 2 and sums in tiles,
+# so a P or dS may land on the neighbouring bf16 value, and a result an ulp
+# or so from the plain one. A gradient has no fixed magnitude: the max-abs
+# limit is 4 bf16 ulps of each reference's largest |value|, and the relative
+# RMS error must stay within 2e-3: a bf16 rounding of every element would
+# give 1.7e-3, and the two versions mostly land on the same bf16 value (the
+# first runs on the card measured 0.6e-4 to 2.4e-4). Both limits reject a backward with one 64-row K/V tile dropped
+# (tests/test_torch_ops.py::test_grad_limits_reject_a_dropped_kv_tile).
+GRAD_ULPS = 4
+GRAD_REL_RMS = 2e-3
+
+# Fused 8-bit AdamW vs plain version, same state and gradient. The kernel
+# rounds every intermediate as the op-by-op version does, so it should agree
+# bit for bit; the limits leave room for a float32 scale one ulp off (1.2e-7
+# relative; limit two ulps) and, where that ulp crosses a rounding boundary,
+# a code off by one in at most 1 of 10^4 entries, never by more than one; the
+# emitted update within one bf16 ulp of the reference's largest |value|.
+ADAM_UPD_ULPS = 1.0
+ADAM_SCALE_REL = 2.4e-7
+ADAM_CODE_SHARE = 1e-4
 
 
 def bf16_ulp(x: float) -> float:
@@ -226,11 +255,180 @@ def _flash_case(name, b, hq, hkv, s, d, causal, with_lse, segments, gen):
             "bound_by": bound_by}
 
 
+def grad_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max-abs error, its limit, relative RMS error) of a bf16 gradient
+    against the plain version's. Gradients have no fixed magnitude, so the
+    max-abs limit is ``GRAD_ULPS`` bf16 ulps of the reference's largest
+    |value| with no cap."""
+    ref = want.float()
+    diff = got.float() - ref
+    return (diff.abs().max().item(), GRAD_ULPS * bf16_ulp(ref.abs().max().item()),
+            (diff.norm() / ref.norm()).item())
+
+
+def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
+    """One shape set of the backward kernel: dQ, dK, dV against the plain
+    version from the same (q, k, v, dO, O, LSE), timings and bound. O and the
+    LSE come from the forward kernel, as on the training path."""
+    from dreamllm_tpu_torch.ops.attention import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_reference,
+        flash_attention_cuda,
+    )
+
+    dev = "cuda"
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+    do = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+    seg = None
+    if segments is not None:
+        seg = torch.tensor(segments, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash_attention_cuda(q, k, v, seg, seg, causal=causal, sm_scale=scale,
+                                    return_lse=True)
+
+    def kernel():
+        return flash_attention_bwd_cuda(q, k, v, do, out, lse, seg, seg, causal=causal,
+                                        sm_scale=scale)
+
+    def plain():
+        return flash_attention_bwd_reference(q, k, v, do, out, lse, seg, seg, causal=causal,
+                                             sm_scale=scale)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for label, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        err, tol, rel_rms = grad_errors(g_, w_)
+        errs[label] = (err, tol, rel_rms)
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"[kernels] {name}: {label} max-abs {err} > {tol}")
+        if not rel_rms <= GRAD_REL_RMS:
+            raise AssertionError(f"[kernels] {name}: {label} relative RMS {rel_rms} > {GRAD_REL_RMS}")
+    if seg is not None:
+        pad_rows = seg == 0
+        for label, g_ in zip(("dq", "dk", "dv"), got):
+            if g_[pad_rows].float().abs().max().item() != 0.0:
+                raise AssertionError(f"[kernels] {name}: {label} of padding rows is not zero")
+
+    # the library yardstick: the backward of one SDPA call, timed alone
+    groups = hq // hkv
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    mask = None
+    keep = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    if seg is not None:
+        keep &= (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+        mask = keep[:, None]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, 20)
+
+    # least time: five products of 2*d flops per kept (q, k) pair and query
+    # head; q, k, v, dO, O read and dQ, dK, dV written once, plus the LSE
+    pairs = int(keep.sum().item())
+    flops = 10.0 * pairs * hq * d
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * s
+    nbytes += 2 * 4 * seg.numel() if seg is not None else 0
+    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+    worst = max(errs.values(), key=lambda e: e[0] / e[1])
+    log(f"[kernels] flash_bwd {name}: "
+        + "  ".join(f"{lb} err {e[0]:.3e} (limit {e[1]:.3e}) rel_rms {e[2]:.3e}"
+                    for lb, e in errs.items())
+        + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa-bwd {library_ms:.4f} ms"
+        f"  bound {bound_ms * 1e3:.2f} us ({bound_by}, {flops / 1e9:.2f} GFLOP)"
+        f"  {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    return {"shape": name, "max_abs_err": worst[0], "max_abs_limit": worst[1],
+            "rel_rms_err": max(e[2] for e in errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _adam_case(name, shape, gen, steps=3):
+    """The fused 8-bit AdamW kernel on one bf16 leaf over ``steps`` successive
+    steps against its plain version. Each step both start from the kernel's
+    previous state, so a one-code difference cannot compound into the next
+    comparison."""
+    from dreamllm_tpu_torch.train.optim8bit import (
+        _Moment,
+        adam8bit_update_cuda,
+        adam8bit_update_reference,
+        quant_moment_m,
+        quant_moment_v,
+    )
+
+    dev = "cuda"
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    p = (torch.randn(shape, generator=gen, device=dev) * 0.02).bfloat16()
+    zeros = torch.zeros(shape, device=dev)
+    mq, vq = quant_moment_m(zeros), quant_moment_v(zeros)
+    n = p.numel()
+    worst_upd = worst_scale = 0.0
+    code_share = 0.0
+    for step in range(steps):
+        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).bfloat16()
+        count = step + 1
+        scalars = torch.tensor([4e-5, 1 - 0.9 ** count, 1 - 0.999 ** count], device=dev)
+        want_u, want_m, want_v = adam8bit_update_reference(g, p, mq, vq, scalars, **hyper)
+        got_u = adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper)  # mq, vq in place
+        torch.cuda.synchronize()
+        ulp = bf16_ulp(want_u.float().abs().max().item())
+        worst_upd = max(worst_upd, (got_u.float() - want_u.float()).abs().max().item() / ulp)
+        for got_q, want_q in ((mq, want_m), (vq, want_v)):
+            diff = (got_q.codes.int() - want_q.codes.int()).abs()
+            if diff.max().item() > 1:
+                raise AssertionError(f"[kernels] adam8bit {name}: a code differs by more than 1")
+            code_share = max(code_share, (diff != 0).float().mean().item())
+            rel = ((got_q.scale - want_q.scale).abs()
+                   / want_q.scale.abs().clamp_min(1e-30)).max().item()
+            worst_scale = max(worst_scale, rel)
+    if worst_upd > ADAM_UPD_ULPS or worst_scale > ADAM_SCALE_REL or code_share > ADAM_CODE_SHARE:
+        raise AssertionError(
+            f"[kernels] adam8bit {name}: update {worst_upd} ulps (limit {ADAM_UPD_ULPS}), scales "
+            f"{worst_scale} (limit {ADAM_SCALE_REL}), codes off by one {code_share} "
+            f"(limit {ADAM_CODE_SHARE})")
+
+    # a skipped step: zero update, state untouched
+    before = [t.clone() for t in (*mq, *vq)]
+    skip = torch.ones((), dtype=torch.int32, device=dev)
+    got_u = adam8bit_update_cuda(g, p, mq, vq, scalars, skip=skip, **hyper)
+    if got_u.float().abs().max().item() != 0.0 or any(
+            not torch.equal(a, b_) for a, b_ in zip(before, (*mq, *vq))):
+        raise AssertionError(f"[kernels] adam8bit {name}: a skipped step moved something")
+
+    ms = cuda_ms(lambda: adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper), 20)
+    plain_ms = cuda_ms(lambda: adam8bit_update_reference(g, p, mq, vq, scalars, **hyper), 5)
+    # g, p read and the update written at 2 B; two codes read and written;
+    # two float32 scales per 256 elements read and written
+    nb = -(-n // 256)
+    nbytes = 10 * n + 16 * nb
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    log(f"[kernels] adam8bit {name}: update err {worst_upd:.3f} bf16 ulps, scales rel "
+        f"{worst_scale:.3e}, codes off by one {code_share:.3e}  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  bound {bound_ms * 1e3:.2f} us (bytes)  "
+        f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+    return {"shape": name, "max_abs_err": worst_upd * ulp, "update_err_ulps": worst_upd,
+            "scale_rel_err": worst_scale, "codes_off_by_one": code_share, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     pad = 24
     segs = [[1] * 300 + [2] * 500 + [3] * (200) + [0] * pad,
             [1] * 700 + [2] * (1024 - 700 - pad) + [0] * pad]
+    segs2k = [[1] * 2048, [1] * 1280 + [2] * (768 - 51) + [0] * 51]  # as _joint_batch packs it
     cases = [
         # the UNet's spatial self-attention at 512 px (CFG batch 2)
         ("unet64x64 B2 H5 S4096 D64", 2, 5, 5, 4096, 64, False, False, None),
@@ -238,9 +436,26 @@ def phase_kernels() -> dict:
         # the decoder's shapes (training and cache-free forwards)
         ("causal B1 H32 S2048 D128 lse", 1, 32, 32, 2048, 128, True, True, None),
         ("causal-gqa-seg B2 Hq32 Hkv8 S1024 D128", 2, 32, 8, 1024, 128, True, True, segs),
+        # the 7B training batch: two rows, the second packed with a padding tail
+        ("train causal-seg B2 H32 S2048 D128 lse", 2, 32, 32, 2048, 128, True, True, segs2k),
     ]
     results = [_flash_case(*c, gen) for c in cases]
-    return {"flash_fwd": results}
+    bwd_cases = [
+        # the decoder's training shapes
+        ("causal B1 H32 S2048 D128", 1, 32, 32, 2048, 128, True, None),
+        ("causal-gqa-seg B2 Hq32 Hkv8 S1024 D128", 2, 32, 8, 1024, 128, True, segs),
+        ("train causal-seg B2 H32 S2048 D128", 2, 32, 32, 2048, 128, True, segs2k),
+        # the UNet's spatial self-attention at 512 px (training batch 2)
+        ("unet64x64 B2 H5 S4096 D64", 2, 5, 5, 4096, 64, False, None),
+        ("unet32x32 B2 H10 S1024 D64", 2, 10, 10, 1024, 64, False, None),
+    ]
+    bwd = [_flash_bwd_case(*c, gen) for c in bwd_cases]
+    adam = [_adam_case(name, shape, gen) for name, shape in (
+        ("w_gate [4096, 11008]", (4096, 11008)),
+        ("wq [4096, 4096]", (4096, 4096)),
+        ("norm [4096]", (4096,)),
+    )]
+    return {"flash_fwd": results, "flash_bwd": bwd, "adam8bit": adam}
 
 
 def _tiny_configs():
@@ -390,13 +605,346 @@ def phase_main(profile_dir: str | None = None) -> dict:
         f"peak memory {peak / 2**30:.2f} GiB")
     if profile_dir:
         _profile_main(params, cfg, head, head_cfg, profile_dir)
-    return {"flash_fwd": launches}
+    del doc, imgs, texts
+    return {"flash_fwd": launches}, (params, cfg, head, head_cfg)
 
 
-def _profile(fn, label: str, out_dir: str) -> None:
+# ---------------------------------------------------------------------------
+# Training phases
+# ---------------------------------------------------------------------------
+
+FROZEN = ("clip_vision_embedding/clip", "sd_head/unet", "sd_head/vae")  # the SFT recipe
+
+
+def _joint_batch(cfg, gen, *, batch, seq, image_px, dream_px, dtype, device):
+    """``batch`` rows of ``seq`` tokens: one input image span and one dream
+    span each, labels on the text only; the last row is packed from two
+    segments and ends in a padding tail."""
+    st = cfg.special_tokens
+    n_img, n_q = cfg.image_embed_len, cfg.n_dream_queries
+    ids = torch.randint(10, 31000, (batch, seq), generator=gen, device=device)
+    labels = ids.clone()
+    img_at, dream_at = 9, 9 + n_img + 30
+    ids[:, 0] = st.bos
+    ids[:, img_at - 1], ids[:, img_at + n_img] = st.im_start, st.im_end
+    ids[:, img_at:img_at + n_img] = st.im_patch
+    ids[:, dream_at - 1], ids[:, dream_at + n_q] = st.dream_start, st.dream_end
+    ids[:, dream_at:dream_at + n_q] = st.dream
+    labels[:, img_at - 1:img_at + n_img + 1] = -100
+    labels[:, dream_at - 1:dream_at + n_q + 1] = -100
+    seg = torch.ones((batch, seq), dtype=torch.int32, device=device)
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None].repeat(batch, 1)
+    cut, pad = seq * 5 // 8, seq // 40  # second segment and padding tail of the last row
+    seg[-1, cut:seq - pad] = 2
+    seg[-1, seq - pad:] = 0
+    pos[-1, cut:] = torch.arange(seq - cut, dtype=torch.int32, device=device)
+    labels[-1, seq - pad:] = -100
+    vs = cfg.vision.image_size
+    return {
+        "input_ids": ids, "labels": labels, "segment_ids": seg, "positions": pos,
+        "images": torch.randn((batch, 1, vs, vs, 3), generator=gen, device=device).to(dtype),
+        "image_positions": torch.full((batch, 1), img_at, device=device),
+        "dream_positions": torch.full((batch, 1), dream_at, device=device),
+        "images_dm": (torch.rand((batch, 1, dream_px, dream_px, 3), generator=gen,
+                                 device=device) * 2 - 1).to(dtype),
+    }
+
+
+def _train_setup(cfg, head_cfg, params, device, opt_kw, wrap_tx=None):
+    """The training entry points assembled as a user would: freeze mask ->
+    optimizer -> state -> train step. ``wrap_tx`` may wrap the optimizer the
+    step calls (the state is initialised from the unwrapped one)."""
+    import dataclasses
+
+    from dreamllm_tpu_torch.models.dreamllm import param_freeze_mask
+    from dreamllm_tpu_torch.models.sd.head import make_head_loss_fn
+    from dreamllm_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+    from dreamllm_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(cfg, frozen=FROZEN)
+    mask = param_freeze_mask(params, cfg)
+    tx = make_optimizer(OptimizerConfig(**opt_kw), trainable_mask=mask)
+    state = init_train_state(params, tx, device=device)
+    step_fn = make_train_step(cfg, wrap_tx(tx) if wrap_tx else tx,
+                              head_loss_fn=make_head_loss_fn(head_cfg), remat=True,
+                              use_flash=True, trainable_mask=mask, device=device)
+    return cfg, mask, tx, state, step_fn
+
+
+def phase_small_train() -> None:
+    """Three tiny float32 joint train steps (8-bit AdamW; on the card its
+    float32 leaves go through the fused kernel) on the card against the same
+    on the CPU: loss and grad_norm within 1e-3 relative (float32 products on
+    both, summed in other orders; steps 2 and 3 also carry the updates)."""
+    from dreamllm_tpu_torch.models.dreamllm import init_dreamllm_params
+    from dreamllm_tpu_torch.models.sd.head import init_sd_head_params
+    from dreamllm_tpu_torch.train.optim8bit import adam8bit_update_cuda
+
+    cfg, head_cfg = _tiny_configs()
+    gen = torch.Generator().manual_seed(5)
+    params = init_dreamllm_params(cfg, generator=gen, device="cpu")
+    params["sd_head"] = init_sd_head_params(head_cfg, generator=gen, device="cpu")
+    batch = _joint_batch(cfg, gen, batch=2, seq=64, image_px=32, dream_px=16,
+                         dtype=torch.float32, device="cpu")
+    draws = []
+    for _ in range(3):
+        lat = (2, 8, 8, 4)
+        draws.append({"vae_eps": torch.randn(lat, generator=gen),
+                      "noise": torch.randn(lat, generator=gen),
+                      "t": torch.randint(0, 1000, (2,), generator=gen),
+                      "drop": torch.zeros((2, 1, 1), dtype=torch.bool)})
+    opt_kw = dict(learning_rate=1e-3, warmup_steps=0, total_steps=100, optimizer_8bit=True,
+                  min_8bit_size=256, fused_update=True, eps=1e-5)
+
+    def run(device):
+        def move(tree):
+            if isinstance(tree, dict):
+                return {k: move(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [move(v) for v in tree]
+            return tree.to(device)
+
+        _, _, _, state, step_fn = _train_setup(cfg, head_cfg, move(params), device, opt_kw)
+        out = []
+        for d in draws:
+            state, aux = step_fn(state, move(batch), None, move(d))
+            out.append((float(aux["loss"]), float(aux["grad_norm"]), float(aux["update_skipped"])))
+        return out
+
+    before = adam8bit_update_cuda.launches
+    ref, got = run("cpu"), run("cuda")
+    if adam8bit_update_cuda.launches == before:
+        raise AssertionError("[small-train] the fused AdamW kernel did not launch on the card")
+    for i, (r, g) in enumerate(zip(ref, got)):
+        for name, a, b in zip(("loss", "grad_norm"), g, r):
+            if not abs(a - b) <= 1e-3 * abs(b):
+                raise AssertionError(f"[small-train] step {i + 1} {name}: card {a} vs CPU {b}")
+        if g[2] != 0.0 or r[2] != 0.0:
+            raise AssertionError(f"[small-train] step {i + 1} was skipped")
+    log(f"[small-train] card == CPU over 3 steps: loss {[round(g[0], 5) for g in got]}, "
+        f"grad_norm {[round(g[1], 5) for g in got]}")
+
+
+def unet_flash_sites(unet_cfg, batch: int) -> tuple[int, bool]:
+    """How many of the UNet's spatial self-attentions pass the flash rule at
+    ``sample_size`` latents (one per transformer layer of every attention
+    block whose sequence is long enough), and whether the UNet's very first
+    self-attention is one of them."""
+    from dreamllm_tpu_torch.ops.attention import flash_eligible
+
+    sites, first = 0, False
+    n = len(unet_cfg.block_out_channels)
+    for i, btype in enumerate(unet_cfg.down_block_types):
+        side = unet_cfg.sample_size >> i
+        d = unet_cfg.block_out_channels[i] // unet_cfg.num_attention_heads[i]
+        shape = (batch, side * side, unet_cfg.num_attention_heads[i], d)
+        per_block = unet_cfg.transformer_layers_per_block[i] * flash_eligible(shape, shape)
+        if btype == "CrossAttnDownBlock2D":
+            sites += unet_cfg.layers_per_block * per_block          # the down block
+            first = first or (i == 0 and per_block > 0)
+        if unet_cfg.up_block_types[n - 1 - i] == "CrossAttnUpBlock2D":
+            sites += (unet_cfg.layers_per_block + 1) * per_block    # its mirror up block
+    side = unet_cfg.sample_size >> (n - 1)
+    d = unet_cfg.block_out_channels[-1] // unet_cfg.num_attention_heads[-1]
+    shape = (batch, side * side, unet_cfg.num_attention_heads[-1], d)
+    sites += unet_cfg.transformer_layers_per_block[-1] * flash_eligible(shape, shape)  # mid
+    return sites, first
+
+
+def phase_train(model: list, profile_dir: str | None = None) -> dict:
+    """``model``: ``[params, cfg, head, head_cfg]`` from the serving phase;
+    the list is emptied, so that the first step's superseded parameters are
+    freed and not kept alive by the caller. ``profile_dir``: after the three
+    steps, profile one more (kernel sums only: a step's trace is too long
+    to keep)."""
+    from dreamllm_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_cuda
+    from dreamllm_tpu_torch.train.optim import (
+        GradientTransformation,
+        OptimizerConfig,
+        adam_state,
+        make_optimizer,
+    )
+    from dreamllm_tpu_torch.train.optim8bit import _Moment, adam8bit_update_cuda
+    from dreamllm_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from dreamllm_tpu_torch.train.tree import tree_leaves, tree_leaves_with_path, tree_map
+
+    dev = "cuda"
+    steps, batch_rows, seq = 3, 2, 2048
+    params, cfg, head, head_cfg = model
+    model.clear()
+    params = {**params, "sd_head": head}
+    del head
+    # the SFT recipe's optimizer (lr 4e-5, cosine over 12000 steps, clip 1.0,
+    # no weight decay) with 8-bit moments; no warmup: its 200 warmup steps
+    # start at lr 0, and three steps would move nothing
+    opt_kw = dict(learning_rate=4e-5, schedule="cosine", warmup_steps=0, total_steps=12000,
+                  weight_decay=0.0, max_grad_norm=1.0, optimizer_8bit=True, fused_update=True)
+    # every emitted update finite and nonzero, and every leaf moved wherever
+    # an update exceeds half a bf16 ulp of its parameter (parameters are bf16
+    # with no float32 master copy, as in the JAX package: at lr 4e-5 a norm
+    # scale of exactly 1.0, ulp 2^-7, cannot move, and most elements of a
+    # weight matrix do not either). Flags are gathered on the card and read
+    # once at the end.
+    flags = []
+
+    def checked(tx):
+        def update(grads, opt_state, params_, *, skip=None):
+            updates, new_state = tx.update(grads, opt_state, params_, skip=skip)
+
+            def check(u, p):
+                if u is not None:
+                    moved = ((p + u) != p).any()
+                    must = (u.float().abs() > p.float().abs() * 2.0 ** -8).any()
+                    flags.append(torch.stack([torch.isfinite(u).all(), (u != 0).any(),
+                                              moved | ~must, moved]))
+
+            tree_map(check, updates, params_)
+            return updates, new_state
+
+        return GradientTransformation(tx.init, update)
+
+    cfg, mask, tx, state, step_fn = _train_setup(cfg, head_cfg, params, dev, opt_kw, checked)
+    del params
+    moments = [m for m in tree_leaves(adam_state(state.opt_state)["m"]) if isinstance(m, _Moment)]
+    flat_mask = dict(tree_leaves_with_path(mask))
+    n_trainable = sum(p.numel() for path, p in tree_leaves_with_path(state.params)
+                      if flat_mask[path])
+    log(f"[train] {n_trainable / 1e9:.3f} B trainable parameters, {len(moments)} 8-bit moment "
+        f"leaves ({sum(m.codes.numel() for m in moments) / 1e9:.3f} B codes each for m and v)")
+
+    frozen = [(path, p) for path, p in tree_leaves_with_path(state.params) if not flat_mask[path]]
+
+    def checksum(p):  # exact: the sum of the raw 16-bit patterns
+        return p.contiguous().view(torch.int16).long().sum()
+
+    frozen_before = torch.stack([checksum(p) for _, p in frozen])
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = _joint_batch(cfg, gen, batch=batch_rows, seq=seq, image_px=cfg.vision.image_size,
+                         dream_px=512, dtype=torch.bfloat16, device=dev)
+
+    class Data:
+        def __iter__(self):
+            while True:
+                yield batch
+
+    step_s, auxes = [], []
+
+    class Clock:
+        def __init__(self):
+            self.t = None
+
+        def on_step(self, trainer, step, aux):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - self.t)
+            self.t = now
+            auxes.append(aux)
+
+    clock = Clock()
+    trainer = Trainer(
+        TrainerConfig(max_steps=steps, log_steps=1, save_steps=0, resume=False,
+                      output_dir="runs/chip_smoke_train", tokens_per_batch=batch_rows * seq),
+        step_fn, Data(), state, generator=gen, callbacks=[clock], device=dev)
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd_cuda.launches = 0
+    adam8bit_update_cuda.launches = 0
+    clock.t = time.perf_counter()
+    final = trainer.train()
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_bwd": flash_attention_bwd_cuda.launches,
+                "adam8bit": adam8bit_update_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [[float(a[k]) for k in ("loss", "lm_loss", "vm_loss", "grad_norm", "update_skipped")]
+              for a in auxes]
+    for i, row in enumerate(losses):
+        if not all(math.isfinite(x) for x in row) or row[4] != 0.0:
+            raise AssertionError(f"[train] step {i + 1}: loss/lm/vm/grad_norm/skipped = {row}")
+    if int(final.step) != steps or int(adam_state(final.opt_state)["count"]) != steps:
+        raise AssertionError("[train] step counter or optimizer count did not reach 3")
+    got_flags = torch.stack(flags).cpu()
+    n_leaves = got_flags.shape[0] // steps
+    for name, col in zip(("finite", "nonzero", "applied where they exceed half an ulp"),
+                         got_flags.T[:3]):
+        if not bool(col.all()):
+            raise AssertionError(f"[train] {int((~col).sum())} emitted updates were not {name}")
+    moved = got_flags[:, 3].reshape(steps, n_leaves).any(dim=0)
+    frozen_after = [p for path, p in tree_leaves_with_path(final.params) if not flat_mask[path]]
+    if (any(a is not b for (_, a), b in zip(frozen, frozen_after))
+            or not torch.equal(frozen_before, torch.stack([checksum(p) for p in frozen_after]))):
+        raise AssertionError("[train] a frozen parameter changed")
+
+    # launches per step, from the configuration: remat reruns each decoder
+    # layer's forward in the backward (K1 twice a layer, K2 once); the UNet
+    # is not checkpointed (K1 once a flash site); K4 once per 8-bit leaf. The
+    # UNet is frozen, and its very first self-attention runs before any
+    # cross-attention has brought the dream states in: nothing upstream of it
+    # needs a gradient, so autograd rightly asks no backward of that site.
+    layers = cfg.llm.num_hidden_layers
+    sites, first_site = unet_flash_sites(head_cfg.unet, batch_rows)
+    want = {"flash_fwd": steps * (2 * layers + sites),
+            "flash_bwd": steps * (layers + sites - int(first_site)),
+            "adam8bit": steps * len(moments)}
+    if launches != want:
+        raise AssertionError(f"[train] kernel launches {launches}, want {want}")
+
+    tokens = batch_rows * seq
+    log(f"[train] {steps} steps at batch {batch_rows} x {seq}: step seconds "
+        f"{[round(t, 3) for t in step_s]} (the first includes the kernels' first use)")
+    log(f"[train] tokens/s {tokens / min(step_s):.1f} at the fastest step "
+        f"({tokens / (sum(step_s[1:]) / len(step_s[1:])):.1f} over steps 2-{steps})")
+    log(f"[train] peak memory {peak / 2**30:.2f} GiB")
+    log(f"[train] loss {[round(r[0], 4) for r in losses]} lm {[round(r[1], 4) for r in losses]} "
+        f"vm {[round(r[2], 4) for r in losses]} grad_norm {[round(r[3], 4) for r in losses]}")
+    log(f"[train] launches over {steps} steps: {launches}; {n_leaves} trainable leaves updated "
+        f"a step, {int(moved.sum())} of them changed in some element "
+        f"({n_leaves - int(moved.sum())} hold updates below half a bf16 ulp everywhere), "
+        f"{len(frozen)} frozen leaves unchanged")
+
+    if profile_dir:
+        box = [final]
+
+        def one_step():
+            box[0], _ = step_fn(box[0], batch, gen)
+
+        del final, trainer.state
+        _profile(one_step, "train_step", profile_dir, trace=False, top=16)
+        final = box.pop()
+
+    # one full optimizer update (clip + 8-bit AdamW over every trainable
+    # leaf), fused kernel against the unfused math, same state and gradients
+    params_now, opt_state = final.params, final.opt_state
+    del final, trainer, auxes
+    grads = tree_map(lambda p, m: (torch.randn(p.shape, generator=gen, device=dev,
+                                               dtype=torch.float32) * 1e-3).to(p.dtype)
+                     if m else None, params_now, mask)
+    torch.cuda.empty_cache()
+    times = {}
+    for label, fused in (("fused", True), ("unfused", False), ("fused", True), ("unfused", False)):
+        tx_t = make_optimizer(OptimizerConfig(**{**opt_kw, "fused_update": fused}),
+                              trainable_mask=mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tx_t.update(grads, opt_state, params_now)
+        torch.cuda.synchronize()
+        times.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+        del out
+    log(f"[train] optimizer update, fused kernel: {min(times['fused']):.2f} ms "
+        f"(runs {[round(t, 2) for t in times['fused']]})")
+    log(f"[train] optimizer update, unfused: {min(times['unfused']):.2f} ms "
+        f"(runs {[round(t, 2) for t in times['unfused']]})")
+    return launches
+
+
+def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8) -> None:
     """Wall time of ``fn`` (synchronised, unprofiled), then one profiled run:
     device time summed over the CUDA kernels, the busy share, the top
-    kernels, and a Chrome trace under ``out_dir``."""
+    kernels, and (``trace``) a Chrome trace under ``out_dir``."""
     import os
 
     from torch.autograd import DeviceType
@@ -415,11 +963,12 @@ def _profile(fn, label: str, out_dir: str) -> None:
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms "
         f"(busy {dev_ms / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:8]:
+    for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:top]:
         log(f"[profile] {label}:   {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{label}.json"))
+    if trace:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{label}.json"))
 
 
 def _profile_main(params, cfg, head, head_cfg, out_dir: str) -> None:
@@ -457,28 +1006,46 @@ def _leaves(tree):
         yield tree
 
 
+# name -> (source, the TPU kernel body it replaces, the launch mix of its main
+# path as (shape-name prefix, launches per unit of work)). flash_fwd keeps the
+# serving mix (one UNet forward: 5 launches at each level); flash_bwd and
+# adam8bit take one train step's (the UNet's first 64x64 site needs no
+# backward, see phase_train).
+KERNELS = {
+    "flash_fwd": ("dreamllm_tpu_torch/csrc/flash_fwd.cu", "dreamllm_tpu/ops/attention.py:133",
+                  (("unet64x64", 5), ("unet32x32", 5))),
+    "flash_bwd": ("dreamllm_tpu_torch/csrc/flash_bwd.cu", "dreamllm_tpu/ops/attention.py:369",
+                  (("train causal-seg", 32), ("unet64x64", 4), ("unet32x32", 5))),
+    "adam8bit": ("dreamllm_tpu_torch/csrc/adam8bit.cu", "dreamllm_tpu/train/optim8bit.py:64",
+                 (("w_gate", 96), ("wq", 128), ("norm", 65))),
+}
+
+
 def kernel_line(checks: dict, launches: dict) -> dict:
     """One entry per kernel. ``ms``, ``plain_ms``, ``library_ms`` and
-    ``bound_ms`` are means per launch over the main path's launch mix (the
-    two UNet shapes, half of the launches each); ``per_shape`` keeps every
-    shape set."""
+    ``bound_ms`` are means per launch over the kernel's main-path launch mix
+    (``KERNELS``); ``launches`` sums the serving and the training run, and
+    ``launches_by_path`` keeps them apart; ``per_shape`` keeps every shape
+    set."""
     out = []
-    for name, source, replaces in (
-        # the TPU kernel body _flash_kernel_t (its pallas_call is at :296)
-        ("flash_fwd", "dreamllm_tpu_torch/csrc/flash_fwd.cu", "dreamllm_tpu/ops/attention.py:133"),
-    ):
+    for name, (source, replaces, mix) in KERNELS.items():
         rows = checks[name]
-        main = [r for r in rows if r["shape"].startswith("unet")]
+        picked = [(next(r for r in rows if r["shape"].startswith(prefix)), w)
+                  for prefix, w in mix]
+        total = sum(w for _, w in picked)
 
         def mean(key):
-            return sum(r[key] for r in main) / len(main)
+            if any(r[key] is None for r, _ in picked):
+                return None
+            return sum(r[key] * w for r, w in picked) / total
 
+        by_path = {path: counts[name] for path, counts in launches.items() if name in counts}
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-            "bound_by": main[0]["bound_by"], "library_ms": mean("library_ms"),
+            "bound_by": picked[0][0]["bound_by"], "library_ms": mean("library_ms"),
             "per_shape": rows,
         })
     return {"kernels": out}
@@ -487,10 +1054,10 @@ def kernel_line(checks: dict, launches: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-main", action="store_true",
-                    help="stop after the kernel checks (no model run)")
+                    help="stop after the kernel checks (no model run, serving or training)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the main path, profile one UNet step and one decode step "
-                         "and write Chrome traces to DIR")
+                    help="profile one UNet step and one decode step (Chrome traces to DIR) "
+                         "and one train step (kernel sums only)")
     args = ap.parse_args()
 
     line = phase_env()
@@ -499,7 +1066,10 @@ def main() -> int:
     launches = {}
     if not args.no_main:
         phase_small_reference()
-        launches = phase_main(args.profile)
+        phase_small_train()
+        launches["serving"], model = phase_main(args.profile)
+        model = list(model)  # phase_train empties it: nothing here keeps the parameters alive
+        launches["training"] = phase_train(model, args.profile)
     log(line)
     print(json.dumps(kernel_line(checks, launches)))
     print(json.dumps({"ok": True, "device": {

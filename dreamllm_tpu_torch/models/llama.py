@@ -17,6 +17,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from dreamllm_tpu_torch.device import resolve_device
 from dreamllm_tpu_torch.ops.activations import swiglu
@@ -189,6 +190,30 @@ def _decoder_layer(layer, x, cos, sin, cfg, segment_ids, cache_kv, cache_meta, u
     return x + swiglu(y @ layer["w_gate"], y @ layer["w_up"]) @ layer["w_down"]
 
 
+def _dots_contexts():
+    """Selective checkpointing that saves matmul outputs (the counterpart
+    of ``jax.checkpoint_policies.dots_saveable``): elementwise work and the
+    flash kernel are recomputed in the backward, the products are not."""
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.bmm.default, aten.addmm.default])
+
+
+def _remat_plan(remat, n_layers: int) -> list[str | None]:
+    """Per layer: ``"full"``, ``"dots"`` or None (save everything)."""
+    if not remat:
+        return [None] * n_layers
+    if remat is True or remat == "full":
+        return ["full"] * n_layers
+    if remat == "dots":
+        return ["dots"] * n_layers
+    if isinstance(remat, int) and not isinstance(remat, bool):
+        if not 0 <= remat <= n_layers:
+            raise ValueError(f"remat={remat} out of [0, L] range")
+        return ["dots"] * (n_layers - remat) + [None] * remat
+    raise ValueError(f"unknown remat policy: {remat!r}")
+
+
 def llama_forward(
     params: Params,
     cfg: LlamaConfig,
@@ -199,6 +224,8 @@ def llama_forward(
     positions: torch.Tensor | None = None,
     kv_cache: Params | None = None,
     use_flash: bool = True,
+    remat: bool | str | int = False,
+    output_stats: bool = False,
 ) -> dict:
     """Run the decoder stack.
 
@@ -209,8 +236,23 @@ def llama_forward(
     the plain path with an additive bias; without it, causal attention goes
     through :func:`flash_attention` (``use_flash``) or the plain path.
 
+    ``remat`` (cache-free forward only; it matters under autograd): True or
+    ``"full"`` checkpoints every layer (``torch.utils.checkpoint``,
+    non-reentrant: the backward reruns the layer, so the flash forward
+    launches twice a layer); ``"dots"`` saves the layer's matmul outputs and
+    recomputes the rest; an int ``k`` gives the first ``L - k`` layers
+    ``"dots"`` and saves everything in the last ``k``. The JAX package's
+    ``scan_unroll`` has no counterpart: the layers are a Python loop, there
+    is no scan to unroll.
+
+    ``output_stats`` adds ``layer_absmax`` ``[L]`` float32, each layer's
+    largest |activation|, detached (monitoring only).
+
     Returns ``{"last_hidden_state", "kv_cache"}``.
     """
+    if output_stats and kv_cache is not None:
+        raise ValueError("output_stats is a training/monitoring feature; the decode "
+                         "(kv_cache) path does not collect layer stats")
     if inputs_embeds is None:
         inputs_embeds = params["embed_tokens"][input_ids]
     x = inputs_embeds
@@ -244,14 +286,27 @@ def llama_forward(
         bias.masked_fill_(~keep, -1e30)
         cache_meta = {"index": idx, "bias": bias[:, None, None]}  # [B,1,1,S,max_len]
 
+    plan = _remat_plan(remat if kv_cache is None and torch.is_grad_enabled() else False,
+                       len(params["layers"]))
+    stats = []
     for li, layer in enumerate(params["layers"]):
         ckv = (kv_cache["k"][li], kv_cache["v"][li]) if kv_cache is not None else None
-        x = _decoder_layer(layer, x, cos, sin, cfg, segment_ids, ckv, cache_meta, use_flash)
+        if plan[li] is None:
+            x = _decoder_layer(layer, x, cos, sin, cfg, segment_ids, ckv, cache_meta, use_flash)
+        else:
+            ctx = {"context_fn": _dots_contexts} if plan[li] == "dots" else {}
+            x = checkpoint(_decoder_layer, layer, x, cos, sin, cfg, segment_ids, None, None,
+                           use_flash, use_reentrant=False, **ctx)
+        if output_stats:
+            stats.append(x.detach().abs().max().float())
 
     if kv_cache is not None:
         kv_cache["index"] = kv_cache["index"] + s
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return {"last_hidden_state": x, "kv_cache": kv_cache}
+    out = {"last_hidden_state": x, "kv_cache": kv_cache}
+    if output_stats:
+        out["layer_absmax"] = torch.stack(stats)
+    return out
 
 
 def llama_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:

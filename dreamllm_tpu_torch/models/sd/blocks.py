@@ -39,17 +39,20 @@ def init_norm(c, dtype, device) -> Params:
             "b": torch.zeros((c,), dtype=dtype, device=device)}
 
 
-def conv2d(x: torch.Tensor, p: Params, stride: int = 1) -> torch.Tensor:
-    """NHWC conv with an OIHW weight, padded by ``(k - 1) // 2`` on every
-    side: JAX's "SAME" at stride 1, and the UNet's downsample padding at
-    stride 2.
+def conv2d(x: torch.Tensor, p: Params, stride: int = 1,
+           padding: int | None = None) -> torch.Tensor:
+    """NHWC conv with an OIHW weight, padded by ``padding``, default
+    ``(k - 1) // 2``, on every side: JAX's "SAME" at stride 1, and the
+    UNet's downsample padding at stride 2.
 
     A float32 conv on the card follows ``torch.backends.cudnn.allow_tf32``,
     which this package leaves to the caller: PyTorch's default (True) runs
     it in TF32; set it False to match the JAX package's "highest"
     precision, as ``chip_smoke.py`` does. bf16 convs are unaffected."""
     w = p["w"].to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, (w.shape[2] - 1) // 2)
+    if padding is None:
+        padding = (w.shape[2] - 1) // 2
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, padding)
     return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
 
 
@@ -124,11 +127,13 @@ def attn_block(p: Params, x: torch.Tensor, num_heads: int = 1, groups: int = 32)
 # ---------------------------------------------------------------------------
 
 
-def downsample(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The UNet's stride-2 conv, padded 1 on every side (JAX's
-    ``symmetric=True``). The VAE encoder's (0, 1) padding comes with
-    ``vae_encode``."""
-    return conv2d(x, p, stride=2)
+def downsample(p: Params, x: torch.Tensor, *, symmetric: bool = True) -> torch.Tensor:
+    """Stride-2 conv. diffusers has two padding conventions that differ
+    numerically: the UNet pads 1 on every side (``symmetric=True``, the
+    default here), the VAE encoder pads (0, 1) per spatial dim."""
+    if symmetric:
+        return conv2d(x, p, stride=2)
+    return conv2d(F.pad(x, (0, 0, 0, 1, 0, 1)), p, stride=2, padding=0)
 
 
 def upsample(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""Stable Diffusion head, inference half (port of
-``dreamllm_tpu/models/sd/head.py``): the projector from LLM hidden states to
-the UNet's cross-attention width, and ``sd_head_pipeline``, the CFG denoise
-loop (DDIM or DPM-Solver++(2M)) followed by the VAE decode.
+"""Stable Diffusion head (port of ``dreamllm_tpu/models/sd/head.py``): the
+projector from LLM hidden states to the UNet's cross-attention width,
+``sd_head_loss``, the diffusion training loss, and ``sd_head_pipeline``, the
+CFG denoise loop (DDIM or DPM-Solver++(2M)) followed by the VAE decode.
 
 The denoise loop is a Python loop (JAX's is a ``fori_loop``): the CFG batch
 is ``[uncond, cond]``, the UNet runs in the projector output's dtype, and
-guidance, the sampler step and the VAE decode run in float32. The training
-loss and DeepCache come with later slices.
+guidance, the sampler step and the VAE decode run in float32. DeepCache and
+the SDXL head come with later slices.
 """
 
 from __future__ import annotations
@@ -24,16 +24,25 @@ from dreamllm_tpu_torch.models.projector import (
 )
 from dreamllm_tpu_torch.models.sd.schedulers import (
     DiffusionSchedule,
+    add_noise,
     classifier_free_guidance,
     ddim_step,
     ddim_timesteps,
     dpm_solver_step,
     dpm_solver_timesteps,
+    get_velocity,
     make_schedule,
     rescale_noise_cfg,
+    snr,
 )
 from dreamllm_tpu_torch.models.sd.unet import UNetConfig, init_unet_params, unet_forward
-from dreamllm_tpu_torch.models.sd.vae import VAEConfig, init_vae_params, vae_decode
+from dreamllm_tpu_torch.models.sd.vae import (
+    VAEConfig,
+    init_vae_params,
+    vae_decode,
+    vae_encode,
+    vae_sample,
+)
 
 Params = dict[str, Any]
 
@@ -46,6 +55,11 @@ class SDHeadConfig:
     projector: ProjectorConfig | None = None  # default: linear llm -> cross-attn
     prediction_type: str = "epsilon"
     num_train_timesteps: int = 1000
+    # training knobs
+    uncond_prob: float = 0.1          # CFG condition dropout
+    noise_offset: float = 0.0
+    input_perturbation: float = 0.0
+    snr_gamma: float | None = None    # min-SNR-gamma loss weighting
     dtype: torch.dtype = torch.float32  # the projector's dtype
 
     def projector_cfg(self) -> ProjectorConfig:
@@ -67,6 +81,121 @@ def init_sd_head_params(cfg: SDHeadConfig, *, generator: torch.Generator | None 
         "unet": init_unet_params(cfg.unet, generator=generator, device=dev),
         "vae": init_vae_params(cfg.vae, generator=generator, device=dev),
     }
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def sd_head_loss(
+    params: Params,
+    cfg: SDHeadConfig,
+    images_dm: torch.Tensor,   # [B, M, H, W, 3] in [-1, 1]
+    cond: torch.Tensor,        # [B, M, n_queries, llm_hidden]
+    uncond: torch.Tensor,      # [1, n_queries, llm_hidden]
+    valid: torch.Tensor,       # [B, M] bool
+    generator: torch.Generator | None = None,
+    latents: torch.Tensor | None = None,   # [B, M, h, w, 4] pre-encoded
+    remat_unet: bool = False,              # per-block UNet checkpointing
+    draws: dict | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Diffusion ("vm") loss over the valid dream spans.
+
+    ``latents``, when given, are VAE latents ALREADY sampled and scaled by
+    ``cfg.vae.scaling_factor``; the frozen VAE encoder is then skipped. The
+    VAE runs without gradients either way.
+
+    Random draws come from ``generator`` (on the inputs' device), or from
+    ``draws``, a dict that may hold any of ``vae_eps`` (latent shape),
+    ``noise`` (latent shape), ``offset`` ``[N, 1, 1, C]``, ``perturbation``
+    (latent shape), ``t`` ``[N]`` int and ``drop`` ``[N, 1, 1]`` bool, with
+    ``N = B * M``: JAX's and PyTorch's streams differ, so a parity test
+    replays the JAX draws through it."""
+    draws = draws or {}
+    dev = cond.device
+    sched = cfg.schedule(dev)
+    b, m = images_dm.shape[:2]
+    n = b * m
+    cond = cond.reshape(n, cond.shape[2], cond.shape[3])
+    valid_f = valid.reshape(n).float()
+
+    def normal(key, shape, dtype):
+        if key in draws:
+            return draws[key].to(device=dev, dtype=dtype)
+        return torch.randn(shape, dtype=dtype, device=dev, generator=generator)
+
+    with torch.no_grad():
+        if latents is None:
+            imgs = images_dm.reshape((n,) + images_dm.shape[2:])
+            mean, logvar = vae_encode(params["vae"], cfg.vae, imgs)
+            latents = vae_sample(mean, logvar, eps=normal("vae_eps", mean.shape, mean.dtype))
+            latents = latents * cfg.vae.scaling_factor
+        else:
+            latents = latents.reshape((n,) + latents.shape[2:])
+        latents = latents.detach()
+
+    noise = normal("noise", latents.shape, latents.dtype)
+    if cfg.noise_offset > 0:  # per-sample channel-wise offset
+        noise = noise + cfg.noise_offset * normal("offset", (n, 1, 1, latents.shape[-1]),
+                                                  latents.dtype)
+    model_input_noise = noise
+    if cfg.input_perturbation > 0:
+        model_input_noise = noise + cfg.input_perturbation * normal(
+            "perturbation", noise.shape, noise.dtype)
+
+    if "t" in draws:
+        t = draws["t"].to(dev).long()
+    else:
+        t = torch.randint(0, sched.num_train_timesteps, (n,), device=dev, generator=generator)
+    noisy = add_noise(sched, latents, model_input_noise, t)
+
+    # CFG condition dropout: Bernoulli-mix cond/uncond states
+    if "drop" in draws:
+        drop = draws["drop"].to(dev).bool()
+    else:
+        drop = torch.rand((n, 1, 1), device=dev, generator=generator) < cfg.uncond_prob
+    states = torch.where(drop, uncond.to(cond.dtype), cond)
+    states = projector_forward(params["projector"], cfg.projector_cfg(), states)
+
+    # The UNet runs in the dtype of its conditioning, as in the pipeline:
+    # add_noise's float32 table promotes bf16 latents to float32, and the
+    # flash kernels take bf16 only. With float32 states this changes nothing.
+    pred = unet_forward(params["unet"], cfg.unet, noisy.to(states.dtype), t, states,
+                        remat=remat_unet)
+
+    if cfg.prediction_type == "epsilon":
+        target = noise
+    elif cfg.prediction_type == "v_prediction":
+        target = get_velocity(sched, latents, noise, t)
+    else:
+        raise ValueError(cfg.prediction_type)
+
+    per = ((pred.float() - target.float()) ** 2).mean(dim=(1, 2, 3))
+    if cfg.snr_gamma is not None:
+        s = snr(sched, t)
+        w = s.clamp_max(cfg.snr_gamma)
+        w = w / s if cfg.prediction_type == "epsilon" else w / (s + 1.0)
+        per = per * w
+    loss = (per * valid_f).sum() / valid_f.sum().clamp_min(1.0)
+    return loss, {"dm_mse": loss}
+
+
+def make_head_loss_fn(cfg: SDHeadConfig, *, remat_unet: bool = False):
+    """Adapter matching ``dreamllm_forward``'s ``head_loss_fn`` signature.
+    Ignores SDXL-only extras (``add_time_ids``)."""
+
+    def fn(head_params, images_dm, cond, uncond, valid, generator, latents=None, draws=None,
+           **_extras):
+        return sd_head_loss(head_params, cfg, images_dm, cond, uncond, valid, generator,
+                            latents=latents, remat_unet=remat_unet, draws=draws)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Inference pipeline
+# ---------------------------------------------------------------------------
 
 
 def sd_head_pipeline(

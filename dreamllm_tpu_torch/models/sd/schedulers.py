@@ -1,6 +1,7 @@
 """Diffusion noise schedule and the inference samplers, DDIM and
-DPM-Solver++(2M) (port of ``dreamllm_tpu/models/sd/schedulers.py``; the
-training-side helpers come with the training slice).
+DPM-Solver++(2M), with the training-side helpers ``add_noise``,
+``get_velocity`` and ``snr`` (port of
+``dreamllm_tpu/models/sd/schedulers.py``).
 
 Pure functions over a precomputed :class:`DiffusionSchedule`. The table is
 built in float64 with numpy, as in JAX, and kept as a float32 tensor; a
@@ -41,6 +42,25 @@ def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-sample table values, shaped to broadcast against rank ``ndim``."""
     v = table[t.long()].float()
     return v.reshape(v.shape + (1,) * (ndim - v.ndim))
+
+
+def add_noise(sched: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor):
+    """Forward process q(x_t | x_0) (diffusers ``DDPMScheduler.add_noise``)."""
+    acp = _extract(sched.alphas_cumprod, t, x0.ndim)
+    return acp.sqrt() * x0 + (1.0 - acp).sqrt() * noise
+
+
+def get_velocity(sched: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor,
+                 t: torch.Tensor):
+    """v-prediction target: ``v = sqrt(acp) * eps - sqrt(1 - acp) * x0``."""
+    acp = _extract(sched.alphas_cumprod, t, x0.ndim)
+    return acp.sqrt() * noise - (1.0 - acp).sqrt() * x0
+
+
+def snr(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio per timestep (min-SNR-gamma weighting)."""
+    acp = sched.alphas_cumprod[t.long()].float()
+    return acp / (1.0 - acp)
 
 
 def pred_x0_eps(sched: DiffusionSchedule, model_out, x_t, t):

@@ -17,6 +17,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dreamllm_tpu_torch.device import resolve_device
 from dreamllm_tpu_torch.models.sd.blocks import (
@@ -219,7 +220,11 @@ def unet_forward(
     sample: torch.Tensor,                 # [B, H, W, in_ch] latents (NHWC)
     timesteps: torch.Tensor,              # [B] or scalar
     encoder_hidden_states: torch.Tensor,  # [B, S_ctx, cross_attention_dim]
+    remat: bool = False,
 ) -> torch.Tensor:
+    """``remat``: checkpoint each down, mid and up block
+    (``torch.utils.checkpoint``, non-reentrant): the backward keeps only the
+    activations at block boundaries and recomputes inside a block."""
     g = cfg.norm_num_groups
     heads = cfg.num_attention_heads
     if timesteps.ndim == 0:
@@ -229,34 +234,52 @@ def unet_forward(
     temb = dense(F.silu(dense(temb, te["linear_1"])), te["linear_2"])
     ctx = encoder_hidden_states.to(sample.dtype)
 
-    h = conv2d(sample, params["conv_in"])
-    skips = [h]
-    for i, blk in enumerate(params["down"]):
+    def ckpt(fn, *args):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def down_blk(blk, n_heads, h, temb, ctx):
+        outs = []
         for j, r in enumerate(blk["resnets"]):
             h = resnet_block(r, h, temb, groups=g, eps=1e-5)
             if "attentions" in blk:
-                h = _transformer2d(blk["attentions"][j], h, ctx, heads[i], g)
-            skips.append(h)
+                h = _transformer2d(blk["attentions"][j], h, ctx, n_heads, g)
+            outs.append(h)
         if "downsample" in blk:
             h = downsample(blk["downsample"], h)
-            skips.append(h)
+            outs.append(h)
+        return tuple(outs)
 
-    m = params["mid"]
-    h = resnet_block(m["resnet1"], h, temb, groups=g, eps=1e-5)
-    h = _transformer2d(m["attention"], h, ctx, heads[-1], g)
-    h = resnet_block(m["resnet2"], h, temb, groups=g, eps=1e-5)
+    def mid_blk(m, h, temb, ctx):
+        h = resnet_block(m["resnet1"], h, temb, groups=g, eps=1e-5)
+        h = _transformer2d(m["attention"], h, ctx, heads[-1], g)
+        return resnet_block(m["resnet2"], h, temb, groups=g, eps=1e-5)
+
+    def up_blk(blk, n_heads, h, temb, ctx, *take):
+        for j, r in enumerate(blk["resnets"]):
+            h = torch.cat([h, take[-(j + 1)]], dim=-1)
+            h = resnet_block(r, h, temb, groups=g, eps=1e-5)
+            if "attentions" in blk:
+                h = _transformer2d(blk["attentions"][j], h, ctx, n_heads, g)
+        if "upsample" in blk:
+            h = upsample(blk["upsample"], h)
+        return h
+
+    h = conv2d(sample, params["conv_in"])
+    skips = [h]
+    for i, blk in enumerate(params["down"]):
+        outs = ckpt(down_blk, blk, heads[i], h, temb, ctx)
+        skips.extend(outs)
+        h = outs[-1]
+
+    h = ckpt(mid_blk, params["mid"], h, temb, ctx)
 
     rev_heads = list(reversed(heads))
     for i, blk in enumerate(params["up"]):
         n_res = len(blk["resnets"])
         take, skips = skips[-n_res:], skips[:-n_res]
-        for j, r in enumerate(blk["resnets"]):
-            h = torch.cat([h, take[-(j + 1)]], dim=-1)
-            h = resnet_block(r, h, temb, groups=g, eps=1e-5)
-            if "attentions" in blk:
-                h = _transformer2d(blk["attentions"][j], h, ctx, rev_heads[i], g)
-        if "upsample" in blk:
-            h = upsample(blk["upsample"], h)
+        h = ckpt(up_blk, blk, rev_heads[i], h, temb, ctx, *take)
 
     h = F.silu(group_norm(h, params["norm_out"]["w"], params["norm_out"]["b"],
                           num_groups=g, eps=1e-5))

@@ -1,11 +1,9 @@
 """AutoencoderKL, SD 1.x/2.x layout (port of
-``dreamllm_tpu/models/sd/vae.py``): the decoder. The encoder's parameters
-are initialised and carried so a JAX tree bridges whole; ``vae_encode``
-comes with the training slice.
+``dreamllm_tpu/models/sd/vae.py``): encoder, sampling and decoder.
 
-As in JAX the decoder runs in the dtype of the latents it is given: the
-pipeline passes float32 latents, so bf16 weights are cast up per conv and
-the image comes out float32.
+As in JAX both halves run in the dtype of what they are given: the pipeline
+passes float32 latents and the training loss float32 images, so bf16 weights
+are cast up per conv and the result comes out float32.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from dreamllm_tpu_torch.device import resolve_device
 from dreamllm_tpu_torch.models.sd.blocks import (
     attn_block,
     conv2d,
+    downsample,
     init_attn_block,
     init_conv,
     init_norm,
@@ -96,6 +95,38 @@ def init_vae_params(cfg: VAEConfig, *, generator: torch.Generator | None = None,
         "quant_conv": init_conv(1, 1, 2 * lc, 2 * lc, d, dev, gen),
         "post_quant_conv": init_conv(1, 1, lc, lc, d, dev, gen),
     }
+
+
+def vae_encode(params: Params, cfg: VAEConfig, x: torch.Tensor):
+    """Image ``[B, H, W, 3]`` in [-1, 1] -> ``(mean, logvar)``, each
+    ``[B, H/8, W/8, latent]``."""
+    g = cfg.norm_num_groups
+    e = params["encoder"]
+    h = conv2d(x, e["conv_in"])
+    for block in e["down"]:
+        for r in block["resnets"]:
+            h = resnet_block(r, h, groups=g)
+        if "downsample" in block:
+            h = downsample(block["downsample"], h, symmetric=False)
+    m = e["mid"]
+    h = resnet_block(m["resnet1"], h, groups=g)
+    h = attn_block(m["attn"], h, groups=g)
+    h = resnet_block(m["resnet2"], h, groups=g)
+    h = F.silu(group_norm(h, e["norm_out"]["w"], e["norm_out"]["b"], num_groups=g))
+    h = conv2d(h, e["conv_out"])
+    h = conv2d(h, params["quant_conv"])
+    mean, logvar = h.chunk(2, dim=-1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def vae_sample(mean: torch.Tensor, logvar: torch.Tensor,
+               generator: torch.Generator | None = None, *,
+               eps: torch.Tensor | None = None) -> torch.Tensor:
+    """``DiagonalGaussianDistribution.sample()``: ``eps`` is the normal draw,
+    or comes from ``generator`` on ``mean``'s device."""
+    if eps is None:
+        eps = torch.randn(mean.shape, dtype=mean.dtype, device=mean.device, generator=generator)
+    return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
 
 
 def vae_decode(params: Params, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Attention ops (port of ``dreamllm_tpu/ops/attention.py``): the plain
-PyTorch attention, and the flash-attention forward with its hand-written
-Hopper kernel (``csrc/flash_fwd.cu``, the counterpart of the TPU kernel
-``_flash_kernel_t``).
+PyTorch attention, and flash attention with its hand-written Hopper kernels:
+the forward (``csrc/flash_fwd.cu``, the counterpart of the TPU kernel
+``_flash_kernel_t``) and the backward (``csrc/flash_bwd.cu``, the counterpart
+of ``_flash_bwd_kernel``), joined by :class:`_FlashCore` so that autograd
+runs the backward kernel.
 
 Layout is BSHD throughout. Padding and packing are segment ids (0 =
 padding). GQA maps query head ``h`` to KV head ``h // (Hq // Hkv)`` without
@@ -12,7 +14,8 @@ Dispatch in :func:`flash_attention` copies the JAX package's eligibility
 rule. Shapes outside it take :func:`dot_product_attention`, as XLA took them
 in JAX. Inside it, a CPU tensor takes :func:`flash_attention_reference`
 (the kernel's plain version) and a CUDA tensor launches the kernel or
-raises; nothing falls back.
+raises; nothing falls back. Both kernels take bfloat16 only: a float32 CUDA
+call inside the rule raises, with or without gradients.
 """
 
 from __future__ import annotations
@@ -161,6 +164,10 @@ def flash_attention_reference(
     return out
 
 
+_BF16_ONLY = ("the flash kernels (forward csrc/flash_fwd.cu, backward csrc/flash_bwd.cu) "
+              "take bfloat16 only on CUDA, got {name}.dtype={dtype}")
+
+
 def _check_rows(name: str, t: torch.Tensor) -> None:
     if t.stride(-1) != 1:
         raise ValueError(f"flash kernel: {name} needs a contiguous head dim, strides {t.stride()}")
@@ -187,7 +194,7 @@ def flash_attention_cuda(
         if not t.is_cuda:
             raise ValueError(f"flash kernel: {name} is on {t.device}, not CUDA")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bfloat16, got {name}.dtype={t.dtype}")
+            raise TypeError(_BF16_ONLY.format(name=name, dtype=t.dtype))
         _check_rows(name, t)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -237,6 +244,165 @@ def flash_attention_cuda(
     return (out, lse) if return_lse else out
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    qseg: torch.Tensor | None,
+    kseg: torch.Tensor | None,
+    *,
+    causal: bool,
+    sm_scale: float,
+):
+    """The backward kernel's plain version: the same recurrence on whole
+    tensors. ``P = exp(S - LSE)`` exactly from the saved LSE ``[B, Hq, Sq]``,
+    ``delta = rowsum(dO * O)``, ``dS = P * (dP - delta) * sm_scale``, with P
+    and dS rounded to the input dtype before their products and float32
+    accumulation. Masked pairs have ``P = 0`` by the mask, not by the LSE,
+    so padding rows get zero dQ and add nothing to dK/dV. Returns
+    ``(dq, dk, dv)`` in the input dtype. The CPU path of autograd through
+    :func:`flash_attention`, and what ``chip_smoke.py`` holds the kernel
+    against on the card."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    groups = hq // hkv
+    dtype = q.dtype
+    qg = q.reshape(b, sq, hkv, groups, d).float()
+    dog = do.to(dtype).reshape(b, sq, hkv, groups, d).float()
+    kf, vf = k.float(), v.float()
+
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * sm_scale
+    lse_g = lse.reshape(b, hkv, groups, sq)[..., None]
+    mask = _mask(b, sq, skv, q.device, causal, qseg, kseg)
+    if mask is not None:
+        p = torch.exp(s.masked_fill(~mask, NEG_INF) - lse_g).masked_fill(~mask, 0.0)
+    else:
+        p = torch.exp(s - lse_g)
+    delta = (do.to(dtype).float() * out.float()).sum(-1)             # [B, Sq, Hq]
+    delta = delta.reshape(b, sq, hkv, groups).permute(0, 2, 3, 1)[..., None]
+
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dtype).float(), dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = (p * (dp - delta) * sm_scale).to(dtype).float()
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    qseg: torch.Tensor | None,
+    kseg: torch.Tensor | None,
+    *,
+    causal: bool,
+    sm_scale: float,
+):
+    """Launch the Hopper backward (``csrc/flash_bwd.cu``) on the current
+    stream: one C call that runs the delta kernel, the dK/dV pass and the dQ
+    pass. Same contract as :func:`flash_attention_cuda` (bf16 BSHD through
+    strides, head_dim 64 or 128, causal needs ``sq == skv``); ``lse`` is the
+    forward's float32 ``[B, Hq, Sq]``. Raises on anything else.
+    ``flash_attention_bwd_cuda.launches`` counts calls."""
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:-1]):
+        do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
+        if not t.is_cuda:
+            raise ValueError(f"flash kernel: {name} is on {t.device}, not CUDA")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(_BF16_ONLY.format(name=name, dtype=t.dtype))
+        _check_rows(name, t)
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if d not in (64, 128):
+        raise NotImplementedError(f"flash kernel: head_dim {d} (built for 64 and 128)")
+    if (hq % hkv or v.shape != k.shape or k.shape[0] != b or k.shape[3] != d
+            or do.shape != q.shape or out.shape != q.shape):
+        raise ValueError(f"flash kernel: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} do{tuple(do.shape)} out{tuple(out.shape)}")
+    if causal and sq != skv:
+        raise ValueError("flash kernel: causal needs sq == skv")
+    if (qseg is None) != (kseg is None):
+        raise ValueError("flash kernel: pass both segment arrays or neither")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or not lse.is_cuda:
+        raise ValueError(f"flash kernel: lse must be CUDA float32 [B, Hq, Sq], got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    lse = lse.contiguous()
+
+    from dreamllm_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd.cu")
+    if not getattr(lib, "_dl_typed", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dl_flash_bwd_bf16.argtypes = (
+            [P] * 12 + [I] * 6 + [L] * 26 + [ctypes.c_float, I, P])
+        lib.dl_flash_bwd_bf16.restype = I
+        lib.dl_cuda_error_string.argtypes = [I]
+        lib.dl_cuda_error_string.restype = ctypes.c_char_p
+        lib._dl_typed = True
+
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if qseg is not None:
+        qseg = qseg.to(device=q.device, dtype=torch.int32).contiguous()
+        kseg = kseg.to(device=q.device, dtype=torch.int32).contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.dl_flash_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        qseg.data_ptr() if qseg is not None else None,
+        kseg.data_ptr() if kseg is not None else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, skv, hq, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *out.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        qseg.stride(0) if qseg is not None else 0,
+        kseg.stride(0) if kseg is not None else 0,
+        float(sm_scale), int(causal), stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"flash backward launch failed: {lib.dl_cuda_error_string(err).decode()} ({err})")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class _FlashCore(torch.autograd.Function):
+    """Forward kernel + backward kernel as one differentiable op (the
+    counterpart of the JAX package's ``_flash_core`` custom VJP). The
+    forward saves ``(q, k, v, qseg, kseg, out, lse)``; the backward runs the
+    backward kernel on CUDA and its plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, causal, sm_scale):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_reference
+        out, lse = fwd(q, k, v, qseg, kseg, causal=causal, sm_scale=sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, qseg, kseg, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qseg, kseg, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_reference
+        dq, dk, dv = bwd(q, k, v, do, out, lse, qseg, kseg,
+                         causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -249,8 +415,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention, BSHD. The kernel on CUDA, its plain version on the
     CPU, :func:`dot_product_attention` for shapes outside the JAX rule.
-    The kernel takes bfloat16 only: a float32 CUDA call inside the rule
-    raises. ``flash_attention.launches`` counts kernel launches.
+    Differentiable: when an input requires grad the call goes through
+    :class:`_FlashCore`, whose backward is the backward kernel on CUDA and
+    its plain version on the CPU. Both kernels take bfloat16 only: a float32
+    CUDA call inside the rule raises. ``flash_attention.launches`` counts
+    forward launches, ``flash_attention_bwd_cuda.launches`` backward ones.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -264,11 +433,13 @@ def flash_attention(
         kseg = kv_segment_ids if kv_segment_ids is not None else segment_ids
     else:
         qseg = kseg = None  # no segment compare at all in the kernel
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention: no path for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashCore.apply(q, k, v, qseg, kseg, causal, sm_scale)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, qseg, kseg, causal=causal, sm_scale=sm_scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, qseg, kseg, causal=causal, sm_scale=sm_scale)
-    raise ValueError(f"flash_attention: no path for device {q.device}")
+    return flash_attention_reference(q, k, v, qseg, kseg, causal=causal, sm_scale=sm_scale)
 
 
 flash_attention.launches = 0

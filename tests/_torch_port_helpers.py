@@ -11,6 +11,7 @@ tests must not modify what they return.
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import numpy as np
@@ -29,6 +30,13 @@ import dreamllm_tpu_torch.models.sd.head as phead
 import dreamllm_tpu_torch.models.sd.unet as punet
 import dreamllm_tpu_torch.models.sd.vae as pvae
 from dreamllm_tpu_torch.bridge import from_jax
+
+# Under pytest-xdist several workers share one machine. PyTorch would give
+# each of them one OpenMP thread per core, and those threads spin against
+# each other and against JAX's: the same tests then run three to five times
+# slower. Two threads a worker keep the cores busy without that.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(2)
 
 LLAMA = dict(vocab_size=32008, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
              num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
@@ -107,3 +115,104 @@ def head_params(seed=1):
     jc, pc = head_cfgs()
     jp = jhead.init_sd_head_params(jax.random.PRNGKey(seed), jc)
     return jc, pc, jp, to_port(jp, phead.init_sd_head_params(pc, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# Training: configurations, batches and replayed random draws
+# ---------------------------------------------------------------------------
+
+FROZEN = ("clip_vision_embedding/clip", "sd_head/unet", "sd_head/vae")
+
+
+def train_cfgs(model_kw=None, head_kw=None):
+    """(JAX model cfg, port model cfg, JAX head cfg, port head cfg), frozen
+    as the SFT recipe freezes them."""
+    import dataclasses
+
+    jc, pc = dreamllm_cfgs()
+    jh, ph = head_cfgs()
+    model_kw = {"frozen": FROZEN, **(model_kw or {})}
+    jc, pc = dataclasses.replace(jc, **model_kw), dataclasses.replace(pc, **model_kw)
+    if head_kw:
+        jh, ph = dataclasses.replace(jh, **head_kw), dataclasses.replace(ph, **head_kw)
+    return jc, pc, jh, ph
+
+
+@functools.lru_cache(maxsize=None)
+def train_params():
+    """JAX and port parameter dicts with the SD head under ``"sd_head"``."""
+    _, _, jp, pp = dreamllm_params()
+    _, _, jhp, php = head_params()
+    return {**jp, "sd_head": jhp}, {**pp, "sd_head": php}
+
+
+def train_batch(seed=0, b=2, s=40, px=64):
+    """A tiny joint batch as numpy: each row one input image (4-token span),
+    one dream span (8 queries) with a ``px`` image, labels on the text, row 1
+    packed from two segments with a padding tail."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(10, 31000, (b, s)).astype(np.int32)
+    labels = ids.copy()
+    seg = np.ones((b, s), np.int32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    image_positions = np.full((b, 1), 3, np.int32)
+    dream_positions = np.full((b, 1), 14, np.int32)
+    labels[:, 2:8] = -100     # image span and its brackets
+    labels[:, 13:23] = -100   # dream span and its brackets
+    if b > 1:
+        seg[1, 26:36] = 2
+        seg[1, 36:] = 0
+        pos[1, 26:36] = np.arange(10)
+        labels[1, 36:] = -100
+    return {
+        "input_ids": ids, "labels": labels, "segment_ids": seg, "positions": pos,
+        "images": rng.standard_normal((b, 1, 32, 32, 3)).astype(np.float32),
+        "image_positions": image_positions, "dream_positions": dream_positions,
+        "images_dm": rng.uniform(-1, 1, (b, 1, px, px, 3)).astype(np.float32),
+    }
+
+
+def jax_batch(batch):
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def port_batch(batch):
+    return {k: t(v) for k, v in batch.items()}
+
+
+def replay_draws(rng, *, n_samples, latent_shape, num_train_timesteps=1000, uncond_prob=0.1,
+                 neftune_shape=None):
+    """The numbers ``dreamllm_forward`` + ``sd_head_loss`` of the JAX package
+    draw from ``rng``, as the port's ``draws`` dict: the NEFTune split first
+    (only when ``neftune_shape`` is given, as JAX splits only then), then the
+    head's 5-way split."""
+    out = {}
+    if neftune_shape is not None:
+        rng, r_nef = jax.random.split(rng)
+        out["neftune"] = t(jax.random.uniform(r_nef, neftune_shape, np.float32))
+    r_lat, r_noise, r_t, r_drop, r_pert = jax.random.split(rng, 5)
+    lat = (n_samples,) + tuple(latent_shape)
+    out["vae_eps"] = t(jax.random.normal(r_lat, lat, np.float32))
+    out["noise"] = t(jax.random.normal(r_noise, lat, np.float32))
+    out["offset"] = t(jax.random.normal(r_pert, (n_samples, 1, 1, lat[-1]), np.float32))
+    out["perturbation"] = t(jax.random.normal(jax.random.fold_in(r_pert, 1), lat, np.float32))
+    out["t"] = t(jax.random.randint(r_t, (n_samples,), 0, num_train_timesteps))
+    out["drop"] = t(jax.random.bernoulli(r_drop, uncond_prob, (n_samples, 1, 1)))
+    return out
+
+
+def jax_leaf(tree, path):
+    """The JAX leaf (numpy) for a path of the port's tree: a list index
+    selects a layer of the stacked leaf, a 4-D conv kernel goes HWIO -> OIHW."""
+    layer = None
+    for key in path:
+        if isinstance(key, int) and isinstance(tree, dict):
+            layer = key
+        else:
+            tree = tree[key]
+    a = np.asarray(tree)
+    if layer is not None:
+        a = a[layer]
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a

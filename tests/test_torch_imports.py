@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: no module of ``dreamllm_tpu_torch`` and
-no line of ``chip_smoke.py`` imports JAX or the JAX package, and the kernel
-sources are not compiled when the package is imported."""
+"""The PyTorch port stands alone: no module of ``dreamllm_tpu_torch`` (its
+``train/`` subpackage included) and no line of ``chip_smoke.py`` imports JAX,
+optax, orbax or the JAX package; the kernel sources under ``csrc/`` include
+no library of finished kernels; and nothing is compiled when the package is
+imported."""
 
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ def _imports(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "dreamllm_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "orbax", "dreamllm_tpu")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -36,7 +38,38 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_forbidden_rule_separates_the_packages():
     assert _forbidden("dreamllm_tpu.ops.attention") and _forbidden("jax.numpy")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint")
     assert not _forbidden("dreamllm_tpu_torch.ops.attention")
+
+
+def test_walk_covers_the_training_subpackage():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("optim", "optim8bit", "step", "checkpoints", "trainer", "tree"):
+        assert f"dreamllm_tpu_torch/train/{mod}.py" in names
+
+
+CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
+
+
+@pytest.mark.parametrize("path", CSRC, ids=lambda p: p.name)
+def test_kernel_sources_are_hand_written_cuda(path):
+    """Every file under ``csrc/`` is a CUDA source that includes only the
+    CUDA runtime and standard headers: no cuBLAS, cuDNN, CUTLASS or PyTorch
+    header, and no word of JAX."""
+    assert path.suffix in (".cu", ".cuh"), path.name
+    text = path.read_text()
+    includes = [ln.split()[1].strip('<>"') for ln in text.splitlines()
+                if ln.startswith("#include")]
+    allowed = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h", "type_traits"}
+    assert set(includes) <= allowed, set(includes) - allowed
+    lowered = text.lower()
+    for word in ("cublas", "cudnn", "cutlass", "torch/", "import jax", "optax", "orbax"):
+        assert word not in lowered, word
+    assert '__global__' in text and 'extern "C"' in text
+
+
+def test_every_kernel_source_is_listed():
+    assert [p.name for p in CSRC] == ["adam8bit.cu", "flash_bwd.cu", "flash_fwd.cu"]
 
 
 def test_package_import_loads_no_jax_and_builds_nothing():
@@ -46,13 +79,14 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dreamllm_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'dreamllm_tpu'):\n"
         "            raise ImportError('the port imported ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dreamllm_tpu')]:\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'dreamllm_tpu')]:\n"
         "    del sys.modules[m]\n"
         "import dreamllm_tpu_torch.generation.interleaved, dreamllm_tpu_torch.configs\n"
-        "import dreamllm_tpu_torch.bridge\n"
+        "import dreamllm_tpu_torch.bridge, dreamllm_tpu_torch.train.trainer\n"
+        "import dreamllm_tpu_torch.train.optim, dreamllm_tpu_torch.train.checkpoints\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )

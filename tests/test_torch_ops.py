@@ -309,3 +309,134 @@ def test_kernel_matches_plain_version_on_card():
     assert err <= tol and rel_rms <= chip_smoke.OUT_REL_RMS
     with pytest.raises(TypeError):
         patt.flash_attention(q.float(), k.float(), v.float())
+
+
+# ---------------------------------------------------------------------------
+# flash-attention backward: the kernel's plain version
+# ---------------------------------------------------------------------------
+
+_BWD_CASES = {
+    # name: (b, s, hq, hkv, d, causal, segments)
+    "noncausal-d64": (1, 512, 2, 2, 64, False, None),
+    "causal-d128": (1, 256, 2, 2, 128, True, None),
+    "causal-gqa-d128": (1, 256, 4, 2, 128, True, None),
+    "packed-segments-padding-tail": (2, 256, 2, 2, 128, True,
+                                     [[1] * 100 + [2] * 120 + [0] * 36, [1] * 256]),
+}
+
+
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_flash_backward_plain_version_matches_jax_kernel_and_autograd(case):
+    """The plain backward (through autograd of the port's ``flash_attention``
+    on the CPU) against ``jax.grad`` of the Pallas kernels in interpret mode
+    and against torch autograd of ``dot_product_attention``. float32; 1e-3
+    relative + 1e-4 absolute, the JAX package's own limits for this
+    comparison (sums of up to 512 terms in other orders, P rebuilt from the
+    LSE). Padding rows are compared for zero gradient only."""
+    import jax
+
+    b, s, hq, hkv, d, causal, segments = _BWD_CASES[case]
+    rng = np.random.default_rng(31)
+    q, k, v = _rand(rng, b, s, hq, d), _rand(rng, b, s, hkv, d), _rand(rng, b, s, hkv, d)
+    do = _rand(rng, b, s, hq, d)
+    seg = None if segments is None else np.asarray(segments, np.int32)
+    rows = np.ones((b, s), bool) if seg is None else seg != 0
+    do = do * rows[:, :, None, None]  # the caller masks padding rows' loss
+
+    def jloss(q_, k_, v_):
+        out = jatt.flash_attention(q_, k_, v_, causal=causal,
+                                   segment_ids=None if seg is None else jnp.asarray(seg),
+                                   block_q=128, block_k=128, interpret=True)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    def grads(fn):
+        tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+        out = fn(tq, tk, tv, causal=causal, segment_ids=None if seg is None else t(seg))
+        return torch.autograd.grad(out, (tq, tk, tv), t(do))
+
+    with mock.patch.object(patt, "flash_attention_bwd_reference",
+                           wraps=patt.flash_attention_bwd_reference) as spy:
+        got = grads(patt.flash_attention)
+    assert spy.call_count == 1  # autograd went through the plain backward
+    plain = grads(patt.dot_product_attention)
+    for name, g_, w_, p_ in zip("qkv", got, want, plain):
+        np.testing.assert_allclose(n(g_)[rows], np.asarray(w_)[rows], rtol=1e-3, atol=1e-4,
+                                   err_msg=f"d{name} vs the Pallas kernel")
+        np.testing.assert_allclose(n(g_)[rows], n(p_)[rows], rtol=1e-3, atol=1e-4,
+                                   err_msg=f"d{name} vs autograd of plain attention")
+        assert float(g_[t(~rows)].abs().max() if (~rows).any() else 0.0) == 0.0
+
+
+def test_flash_backward_ignores_upstream_gradient_on_padding_rows():
+    """dO on a padding row (segment 0) must change nothing: dQ there is
+    zero and dK/dV get no contribution, by the mask, not by the LSE."""
+    rng = np.random.default_rng(32)
+    q, k, v, do = (t(_rand(rng, 1, 128, 2, 128)) for _ in range(4))
+    seg = t(np.asarray([[1] * 100 + [0] * 28], np.int32))
+    out, lse = patt.flash_attention_reference(q, k, v, seg, seg, causal=True,
+                                              sm_scale=128 ** -0.5, return_lse=True)
+    kw = dict(causal=True, sm_scale=128 ** -0.5)
+    a = patt.flash_attention_bwd_reference(q, k, v, do, out, lse, seg, seg, **kw)
+    do2 = do.clone()
+    do2[:, 100:] = 0.0
+    b = patt.flash_attention_bwd_reference(q, k, v, do2, out, lse, seg, seg, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert float(a[0][:, 100:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("heads,s,d", [(5, 4096, 64), (10, 1024, 64), (4, 1024, 128)])
+def test_grad_limits_reject_a_dropped_kv_tile(heads, s, d):
+    """``chip_smoke.py``'s limits on the backward kernel, at the UNet's
+    shapes and a decoder-like one (256 of the query rows, bf16): a backward
+    that skipped its last 64-row K/V tile must fail the relative-RMS limit
+    for dQ, dK and dV, and the max-abs limit for dK and dV (whose last 64
+    rows would be missing altogether)."""
+    rng = np.random.default_rng(33)
+    q, do = (t(_rand(rng, 1, 256, heads, d)).bfloat16() for _ in range(2))
+    k, v = (t(_rand(rng, 1, s, heads, d)).bfloat16() for _ in range(2))
+    scale = d ** -0.5
+    out, lse = patt.flash_attention_reference(q, k, v, None, None, causal=False, sm_scale=scale,
+                                              return_lse=True)
+    full = patt.flash_attention_bwd_reference(q, k, v, do, out, lse, None, None, causal=False,
+                                              sm_scale=scale)
+    cut = patt.flash_attention_bwd_reference(q, k[:, :-64], v[:, :-64], do, out, lse, None,
+                                             None, causal=False, sm_scale=scale)
+    pad = torch.zeros_like(k[:, -64:])
+    cut = (cut[0], torch.cat([cut[1], pad], 1), torch.cat([cut[2], pad], 1))
+    for name, c, f in zip(("dq", "dk", "dv"), cut, full):
+        err, tol, rel_rms = chip_smoke.grad_errors(c, f)
+        assert rel_rms > 4 * chip_smoke.GRAD_REL_RMS, (name, rel_rms)
+        if name != "dq":
+            assert err > tol, (name, err, tol)
+
+
+def test_flash_cuda_float32_raises_naming_both_kernels():
+    """The documented contract: bf16 only on the card, forward and backward."""
+    msg = patt._BF16_ONLY.format(name="q", dtype=torch.float32)
+    assert "flash_fwd.cu" in msg and "flash_bwd.cu" in msg and "bfloat16" in msg
+    q = torch.zeros((1, 512, 1, 64))
+    with pytest.raises(ValueError, match="not CUDA"):
+        patt.flash_attention_bwd_cuda(q, q, q, q, q, torch.zeros((1, 1, 512)), None, None,
+                                      causal=False, sm_scale=0.125)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((2, 1024, 2, 64), generator=g, device="cuda").bfloat16()
+                   for _ in range(4))
+    q.requires_grad_()
+    before = patt.flash_attention_bwd_cuda.launches
+    (dq,) = torch.autograd.grad(patt.flash_attention(q, k, v), (q,), do)
+    assert patt.flash_attention_bwd_cuda.launches == before + 1
+    out, lse = patt.flash_attention_cuda(q.detach(), k, v, None, None, causal=False,
+                                         sm_scale=0.125, return_lse=True)
+    want = patt.flash_attention_bwd_reference(q.detach(), k, v, do, out, lse, None, None,
+                                              causal=False, sm_scale=0.125)
+    err, tol, rel_rms = chip_smoke.grad_errors(dq, want[0])
+    assert err <= tol and rel_rms <= chip_smoke.GRAD_REL_RMS
