@@ -9,12 +9,13 @@ Phases, each on lines of its own; any failure exits non-zero:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every ``dreamllm_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel (flash-attention forward and backward,
-   fused 8-bit AdamW) against its plain PyTorch version on the card, in
-   bf16, at the shapes the main paths give it, timed beside the plain
+   fused 8-bit AdamW, w4a16 int4 matmul) against its plain PyTorch version
+   on the card at the shapes the main paths give it, timed beside the plain
    version, PyTorch's own library call where there is one, and the card's
    bound;
-4. small reference: a tiny random DreamLLM document and a tiny train step
-   on the card agree with the same on the CPU;
+4. small reference: a tiny random DreamLLM document, a tiny train step and
+   a tiny int4 decoder's ``generate_text`` (batch 1 and 8) and engine (4
+   slots, 6 requests) on the card agree with the same on the CPU;
 5. main path, serving: a random full-width DreamLLM-7B + SD-2.1 (bf16,
    seeded, built on the card) writes one interleaved document with two
    512x512 images; the flash kernel's launch count over that run is checked;
@@ -22,7 +23,14 @@ Phases, each on lines of its own; any failure exits non-zero:
    (LM + diffusion loss, CLIP/UNet/VAE frozen, 8-bit AdamW with the fused
    kernel, full remat) through ``Trainer.train`` at batch 2 x 2048; losses,
    updates, frozen parameters and the three kernels' launch counts are
-   checked, and one full optimizer update is timed fused and unfused.
+   checked, and one full optimizer update is timed fused and unfused;
+7. main path, quantized serving: DreamLLM-7B's decoder (bf16, seeded, built
+   on the card) quantized to int4 group-128 layer by layer; ``generate_text``
+   with a 128-token prompt and 128 greedy tokens at batch 1 and 8 (fused
+   layout, bf16 cache) and at batch 8 on the int8 cache, then the
+   continuous-batching engine with ``projects/dreamllm/serve.py``'s defaults
+   (8 slots, unfused int4) answering 16 requests; the w4a16 kernel's launch
+   count and one decode step's logits against its plain version are checked.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -50,6 +58,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 # Kernel vs plain version, both bf16 on the card, inputs N(0, 1). Both round
@@ -94,6 +103,20 @@ ADAM_UPD_ULPS = 1.0
 ADAM_SCALE_REL = 2.4e-7
 ADAM_CODE_SHARE = 1e-4
 
+# w4a16 kernel vs plain version, same bf16-rounded x and packed weight. Both
+# multiply by exact small integers, sum the same products in float32 in
+# different orders (float32 differences near 1e-7 relative), then round to
+# the output dtype. A bf16 output may land on the neighbouring bf16 value:
+# max-abs within 2 bf16 ulps of the reference's largest |value|, relative
+# RMS within 2e-3. A float32 output (the 32000-wide head takes float32 x)
+# keeps the float32 sums: max-abs within 1e-4 of the reference's largest
+# |value|, far above float32 reordering and far below one group's share.
+# Each limit rejects the plain version with one 128-row group dropped
+# (tests/test_torch_quant4.py::test_w4_limits_reject_a_dropped_group).
+W4_ULPS = 2
+W4_REL_RMS = 2e-3
+W4_F32_REL = 1e-4
+
 
 def bf16_ulp(x: float) -> float:
     """Spacing of bfloat16 numbers at magnitude ``x`` (8 significand bits)."""
@@ -114,6 +137,16 @@ def out_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, flo
             (diff.norm() / ref.norm()).item())
 
 
+def w4_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max-abs error, its limit, relative RMS error) of the w4a16 kernel's
+    output against its plain version's, by the output dtype (above)."""
+    ref = want.float()
+    diff = got.float() - ref
+    peak = ref.abs().max().item()
+    tol = W4_ULPS * bf16_ulp(peak) if want.dtype == torch.bfloat16 else W4_F32_REL * peak
+    return diff.abs().max().item(), tol, (diff.norm() / ref.norm()).item()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -126,8 +159,32 @@ def gpu_line() -> str:
     return out[0]
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: its CUDA kernels' time, summed by
+    ``torch.profiler`` over ``iters`` calls. Every kernel's ``ms``,
+    ``plain_ms`` and ``library_ms`` is this time: unlike :func:`cuda_ms` it
+    leaves out the host's launch overhead, which exceeds a small kernel's
+    time on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / 1e3 / iters
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back launches."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, between two CUDA
+    events: the larger of its device time and its host time a call. Every
+    kernel's ``call_ms``."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -231,9 +288,10 @@ def _flash_case(name, b, hq, hkv, s, d, causal, with_lse, segments, gen):
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale)
 
     iters = 20
-    ms = cuda_ms(kernel, iters)
-    plain_ms = cuda_ms(plain, 5)
-    library_ms = cuda_ms(library, iters)
+    ms = device_ms(kernel, iters)
+    call_ms = cuda_ms(kernel, iters)
+    plain_ms = device_ms(plain, 5)
+    library_ms = device_ms(library, iters)
 
     # least time for this work: the (q, k) pairs this data keeps, 2 products
     # of 2*d flops each per pair and query head; bytes each read/written once
@@ -246,11 +304,12 @@ def _flash_case(name, b, hq, hkv, s, d, causal, with_lse, segments, gen):
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
     log(f"[kernels] {name}: max_abs_err {err:.3e} (limit {tol:.3e}) rel_rms {rel_rms:.3e}"
         + (f" lse_err {lse_err:.3e}" if lse_err is not None else "")
-        + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms"
+        + f"  kernel {ms:.4f} ms (call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+        f"  sdpa {library_ms:.4f} ms"
         f"  bound {bound_ms * 1e3:.2f} us ({bound_by}, {flops / 1e9:.2f} GFLOP)"
         f"  {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
     return {"shape": name, "max_abs_err": err, "max_abs_limit": tol, "rel_rms_err": rel_rms,
-            "lse_err": lse_err, "ms": ms,
+            "lse_err": lse_err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -331,9 +390,10 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
     def library():
         return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
 
-    ms = cuda_ms(kernel, 20)
-    plain_ms = cuda_ms(plain, 3)
-    library_ms = cuda_ms(library, 20)
+    ms = device_ms(kernel, 20)
+    call_ms = cuda_ms(kernel, 20)
+    plain_ms = device_ms(plain, 3)
+    library_ms = device_ms(library, 20)
 
     # least time: five products of 2*d flops per kept (q, k) pair and query
     # head; q, k, v, dO, O read and dQ, dK, dV written once, plus the LSE
@@ -347,12 +407,14 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
     log(f"[kernels] flash_bwd {name}: "
         + "  ".join(f"{lb} err {e[0]:.3e} (limit {e[1]:.3e}) rel_rms {e[2]:.3e}"
                     for lb, e in errs.items())
-        + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa-bwd {library_ms:.4f} ms"
+        + f"  kernel {ms:.4f} ms (call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+        f"  sdpa-bwd {library_ms:.4f} ms"
         f"  bound {bound_ms * 1e3:.2f} us ({bound_by}, {flops / 1e9:.2f} GFLOP)"
         f"  {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
     return {"shape": name, "max_abs_err": worst[0], "max_abs_limit": worst[1],
-            "rel_rms_err": max(e[2] for e in errs.values()), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "rel_rms_err": max(e[2] for e in errs.values()), "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def _adam_case(name, shape, gen, steps=3):
@@ -407,20 +469,126 @@ def _adam_case(name, shape, gen, steps=3):
             not torch.equal(a, b_) for a, b_ in zip(before, (*mq, *vq))):
         raise AssertionError(f"[kernels] adam8bit {name}: a skipped step moved something")
 
-    ms = cuda_ms(lambda: adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper), 20)
-    plain_ms = cuda_ms(lambda: adam8bit_update_reference(g, p, mq, vq, scalars, **hyper), 5)
+    ms = device_ms(lambda: adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper), 20)
+    call_ms = cuda_ms(lambda: adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper), 20)
+    plain_ms = device_ms(lambda: adam8bit_update_reference(g, p, mq, vq, scalars, **hyper), 5)
     # g, p read and the update written at 2 B; two codes read and written;
     # two float32 scales per 256 elements read and written
     nb = -(-n // 256)
     nbytes = 10 * n + 16 * nb
     bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
     log(f"[kernels] adam8bit {name}: update err {worst_upd:.3f} bf16 ulps, scales rel "
-        f"{worst_scale:.3e}, codes off by one {code_share:.3e}  kernel {ms:.4f} ms  "
-        f"plain {plain_ms:.4f} ms  bound {bound_ms * 1e3:.2f} us (bytes)  "
+        f"{worst_scale:.3e}, codes off by one {code_share:.3e}  kernel {ms:.4f} ms (call "
+        f"{call_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound {bound_ms * 1e3:.2f} us (bytes)  "
         f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
     return {"shape": name, "max_abs_err": worst_upd * ulp, "update_err_ulps": worst_upd,
             "scale_rel_err": worst_scale, "codes_off_by_one": code_share, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes"}
+            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+W4_SHAPES = {  # DreamLLM-7B's decode projections, [K, N]
+    "wqkv": (4096, 12288), "wo": (4096, 4096), "w_gate_up": (4096, 22016),
+    "w_gate": (4096, 11008), "w_down": (11008, 4096), "head32000": (4096, 32000),
+}
+
+
+def _int4pack_fn(x, t):
+    """PyTorch's own int4 matmul (``torch._weight_int4pack_mm``) on the same
+    weight, for timing only: ``w = (u - 8) * scale + zero`` with zero 0 is
+    this function, with bf16 scales. None where this PyTorch lacks it or
+    refuses the shape."""
+    from dreamllm_tpu_torch.ops.quant4 import GROUP
+
+    try:
+        p = t.packed
+        u = torch.cat([p & 0xF, p >> 4], dim=0).T.contiguous()           # [N, K] in 0..15
+        w_nk = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)           # [N, K/2]
+        packed = torch._convert_weight_to_int4pack(w_nk, 8)
+        sz = torch.stack([t.scale, torch.zeros_like(t.scale)], dim=-1).bfloat16().contiguous()
+        xb = x.bfloat16()
+        fn = lambda: torch._weight_int4pack_mm(xb, packed, GROUP, sz)  # noqa: E731
+        fn()
+        return fn
+    except Exception as e:  # absent, or refuses this shape: reported as none
+        first = str(e).strip().splitlines()[0][:160] if str(e).strip() else ""
+        log(f"[kernels] w4a16: torch._weight_int4pack_mm unavailable ({type(e).__name__}: {first})")
+        return None
+
+
+def _w4_case(label, b, xdtype, gen):
+    """The w4a16 kernel at one 7B shape: against its plain version, then
+    timed (weights rotated through more copies than the 50 MB L2 holds, as
+    decode reads each weight cold) beside the plain version, the dense bf16
+    product on the unquantized weight, the dequantize product (the path
+    outside the gate) and PyTorch's int4 matmul."""
+    from dreamllm_tpu_torch.ops import quant4
+    from dreamllm_tpu_torch.ops.quant4 import (
+        Q4Tensor,
+        dequantize_int4,
+        quantize_int4,
+        w4_matmul_reference,
+    )
+
+    w4_matmul_cuda = quant4.w4_matmul_cuda
+    k, n = W4_SHAPES[label]
+    name = f"{label} {k}x{n} B{b}" + (" f32" if xdtype == torch.float32 else "")
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    t = quantize_int4(w)
+    wb = w.bfloat16()
+    del w
+    x = torch.randn((b, k), generator=gen, device="cuda").to(xdtype)
+    got, want = w4_matmul_cuda(x, t), w4_matmul_reference(x, t)
+    torch.cuda.synchronize()
+    err, tol, rel_rms = w4_errors(got, want)
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"[kernels] w4a16 {name}: max-abs {err} > {tol}")
+    if not rel_rms <= W4_REL_RMS:
+        raise AssertionError(f"[kernels] w4a16 {name}: relative RMS {rel_rms} > {W4_REL_RMS}")
+
+    wbytes = t.nbytes()
+    qs = [t] + [Q4Tensor(t.packed.clone(), t.scale.clone())
+                for _ in range(math.ceil(150e6 / wbytes) - 1)]
+    ws = [wb] + [wb.clone() for _ in range(math.ceil(150e6 / (2 * wb.numel())) - 1)]
+    xb = x.bfloat16()
+    lib = _int4pack_fn(x, t)
+    lib_err = None if lib is None else (lib().float() - want.float()).abs().max().item()
+
+    def rotating(f, pool):
+        i = [0]
+
+        def call():
+            i[0] += 1
+            return f(pool[i[0] % len(pool)])
+        return call
+
+    iters = max(20, 2 * len(qs))
+    ms = device_ms(rotating(lambda q: w4_matmul_cuda(x, q), qs), iters)
+    call_ms = cuda_ms(rotating(lambda q: w4_matmul_cuda(x, q), qs), iters)
+    plain_ms = device_ms(rotating(lambda q: w4_matmul_reference(x, q), qs), 5)
+    dense_ms = device_ms(rotating(lambda wd: xb @ wd, ws), iters)
+    dequant_ms = device_ms(rotating(lambda q: x @ dequantize_int4(q, x.dtype), qs), 5)
+    library_ms = None if lib is None else device_ms(lib, iters)
+    del qs, ws
+
+    # least time: the packed weight and its scales read once, x read and y
+    # written once; the products at the bf16 tensor-core rate. This design
+    # multiplies on the CUDA cores, whose float32 rate sets its own floor.
+    nbytes = wbytes + x.numel() * x.element_size() + b * n * x.element_size()
+    flops = 2.0 * b * k * n
+    bound_ms = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+    core_floor_ms = flops / PEAK_FP32_FLOPS * 1e3
+    log(f"[kernels] w4a16 {name}: max_abs_err {err:.3e} (limit {tol:.3e}) rel_rms {rel_rms:.3e}"
+        f"  kernel {ms:.4f} ms (call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+        f"  dense-bf16 {dense_ms:.4f} ms  dequant {dequant_ms:.4f} ms  int4pack "
+        + (f"{library_ms:.4f} ms (max-abs vs plain {lib_err:.3e})" if lib_err is not None
+           else "none")
+        + f"  bound {bound_ms * 1e3:.2f} us ({bound_by})  fp32-core floor "
+        f"{core_floor_ms * 1e3:.2f} us  {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+    return {"shape": name, "max_abs_err": err, "max_abs_limit": tol, "rel_rms_err": rel_rms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "dense_bf16_ms": dense_ms, "dequant_ms": dequant_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "fp32_core_floor_ms": core_floor_ms}
 
 
 def phase_kernels() -> dict:
@@ -455,7 +623,12 @@ def phase_kernels() -> dict:
         ("wq [4096, 4096]", (4096, 4096)),
         ("norm [4096]", (4096,)),
     )]
-    return {"flash_fwd": results, "flash_bwd": bwd, "adam8bit": adam}
+    w4 = [_w4_case(label, b, torch.bfloat16, gen) for label, b in (
+        ("wqkv", 1), ("wqkv", 8), ("wo", 1), ("wo", 3), ("wo", 8), ("w_gate_up", 1),
+        ("w_gate_up", 8), ("w_gate", 1), ("w_gate", 8), ("w_down", 1), ("w_down", 8))]
+    # a 32000-wide head (bench.py's vocab) takes the kernel with float32 x
+    w4.append(_w4_case("head32000", 1, torch.float32, gen))
+    return {"flash_fwd": results, "flash_bwd": bwd, "adam8bit": adam, "w4a16": w4}
 
 
 def _tiny_configs():
@@ -725,6 +898,96 @@ def phase_small_train() -> None:
         f"grad_norm {[round(g[1], 5) for g in got]}")
 
 
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+SMALL_QUANT_SEED = 24  # its CPU run's smallest top-2 margin is 6.4e-3
+
+
+def phase_small_quant() -> None:
+    """A tiny float32 int4 decoder (hidden 256, vocab 1024: every projection
+    and the head inside the w4a16 gate) on the card against the same on the
+    CPU: ``generate_text`` at batch 1 and 8 (fused layout) and the engine
+    with 4 slots answering 6 requests (unfused, as serve.py builds it) give
+    the same greedy tokens. A near-tie would make that a coin toss, so the
+    CPU run's top-2 logit margins must exceed 1e-3, ten times the float32
+    tolerance of the parity tests (test_torch_generation.py)."""
+    import threading
+
+    import dreamllm_tpu_torch.generation.sampler as sampler
+    import dreamllm_tpu_torch.serve.engine as engine
+    from dreamllm_tpu_torch.models.llama import LlamaConfig, fuse_llama_params, init_llama_params
+    from dreamllm_tpu_torch.ops.quant4 import quantize_llama_params_int4, w4_matmul_cuda
+
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    gen = torch.Generator().manual_seed(SMALL_QUANT_SEED)
+    dense = init_llama_params(cfg, generator=gen, device="cpu")
+    fused = quantize_llama_params_int4(fuse_llama_params(dense))
+    unfused = quantize_llama_params_int4(dense)
+    lens = torch.randint(10, 41, (8,), generator=gen)
+    ids = torch.zeros((8, int(lens.max())), dtype=torch.long)
+    for i, n in enumerate(lens.tolist()):
+        ids[i, :n] = torch.randint(3, 1024, (n,), generator=gen)
+    budgets = torch.randint(8, 17, (6,), generator=gen).tolist()
+    scfg = sampler.SamplingConfig(greedy=True, max_new_tokens=16, eos_token_id=-1)
+    ecfg = engine.EngineConfig(slots=4, prefill_len=32, max_len=128, chunk_steps=4)
+
+    def run(device, margins):
+        real = sampler.llama_logits
+
+        def spy(*a):
+            out = real(*a)
+            if margins is not None:
+                top2 = out.reshape(-1, out.shape[-1]).topk(2, dim=-1).values
+                margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+            return out
+
+        sampler.llama_logits = engine.llama_logits = spy
+        try:
+            p_f, p_u = _to_device(fused, device), _to_device(unfused, device)
+            texts = [sampler.generate_text(p_f, cfg, ids[:b], lens[:b], scfg,
+                                           device=device)["tokens"].cpu().tolist()
+                     for b in (1, 8)]
+            eng = engine.ContinuousBatchingEngine(
+                p_u, cfg, sampler.SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=-1),
+                ecfg, device=device).start()
+            answers = [None] * len(budgets)
+
+            def ask(i):
+                answers[i] = eng.submit(ids[i, :lens[i]].tolist(), max_new_tokens=budgets[i])
+
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(budgets))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            eng.stop()
+            return texts, answers
+        finally:
+            sampler.llama_logits = engine.llama_logits = real
+
+    margins: list[float] = []
+    ref = run("cpu", margins)
+    if not min(margins) > 1e-3:
+        raise AssertionError(f"[small-int4] a near-tie on the CPU: top-2 margin {min(margins)}")
+    before = w4_matmul_cuda.launches
+    got = run("cuda", None)
+    if w4_matmul_cuda.launches == before:
+        raise AssertionError("[small-int4] the w4a16 kernel did not launch on the card")
+    if got != ref or any(a is None or len(a) != n for a, n in zip(got[1], budgets)):
+        raise AssertionError(f"[small-int4] card {got} vs CPU {ref}")
+    log(f"[small-int4] card == CPU: generate_text batch 1 and 8 ({scfg.max_new_tokens} tokens "
+        f"a row), engine 4 slots x 6 requests ({sum(budgets)} tokens); smallest top-2 margin "
+        f"{min(margins):.3e}; w4a16 launches {w4_matmul_cuda.launches - before}")
+
+
 def unet_flash_sites(unet_cfg, batch: int) -> tuple[int, bool]:
     """How many of the UNet's spatial self-attentions pass the flash rule at
     ``sample_size`` latents (one per transformer layer of every attention
@@ -941,6 +1204,222 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
     return launches
 
 
+def _quantized_layouts(dense: dict) -> tuple[dict, dict]:
+    """(unfused int4, fused int4) of a bf16 decoder, quantized layer by
+    layer; the bf16 projections are dropped from ``dense`` as they go, so
+    the bf16 model is never held twice. Embeddings and norms stay bf16 and
+    are shared by both."""
+    from dreamllm_tpu_torch.models.llama import fuse_llama_params
+    from dreamllm_tpu_torch.ops.quant4 import QUANTIZED_KEYS, quantize_int4
+
+    unfused, fused = [], []
+    while dense["layers"]:
+        layer = dense["layers"].pop(0)
+        unfused.append({k: quantize_int4(v) if k in QUANTIZED_KEYS else v
+                        for k, v in layer.items()})
+        fl = fuse_llama_params({"layers": [layer]})["layers"][0]
+        del layer
+        fused.append({k: quantize_int4(v) if k in QUANTIZED_KEYS else v for k, v in fl.items()})
+        del fl
+    common = {"embed_tokens": dense["embed_tokens"], "final_norm": dense["final_norm"],
+              "lm_head": quantize_int4(dense.pop("lm_head"))}
+    return {**common, "layers": unfused}, {**common, "layers": fused}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.nbytes() if hasattr(t, "packed") else t.numel() * t.element_size()
+               for t in _leaves(tree))
+
+
+# one decode forward launches the w4a16 kernel at every projection of every
+# layer: 4 in the fused layout (wqkv, wo, w_gate_up, w_down), 7 unfused; the
+# prefill (more than 8 rows) and the 32064-wide head (not a multiple of 128)
+# take the dequantize product
+W4_PER_LAYER = {"fused": 4, "unfused": 7}
+# One 7B decode step's float32 logits, the kernel against its plain version
+# in every projection. The two differ at single bf16 outputs (relative RMS
+# 1e-9 to 3e-5 a launch in the kernels phase); 32 layers of random weights
+# spread those flips to a few percent of the logits (1.5e-2 measured on an
+# H100 80GB HBM3). The limit bounds that growth; one dropped 128-row group a
+# launch (relative RMS above 0.1 a launch, compounded over 32 layers) lies far
+# beyond it.
+W4_STEP_REL_RMS = 5e-2
+
+
+def phase_serve_int4(profile_dir: str | None = None) -> dict:
+    """The quantized serving path at DreamLLM-7B's full width and depth.
+
+    ``generate_text`` (fused int4, 128-token prompts, 128 greedy tokens) at
+    batch 1 and 8 on the bf16 cache and at batch 8 on the int8 cache, each
+    also run with one new token so that the prefill's share can be taken
+    out of the decode time; then the engine with serve.py's defaults on the
+    unfused layout answers 16 requests, 8 submitted at once and 8 more while
+    those decode. Every kernel count is set to 0 before the path and read
+    after it; the w4a16 count must equal the layout's launches a forward
+    times the decode forwards. Token identity is not asserted: random 7B
+    weights give near-tie logits. Last, one decode step's logits with the
+    kernel are held against the same step with its plain version."""
+    import threading
+
+    import dreamllm_tpu_torch.ops.quant4 as quant4
+    from dreamllm_tpu_torch.configs import dreamllm_7b
+    from dreamllm_tpu_torch.generation.sampler import SamplingConfig, generate_text
+    from dreamllm_tpu_torch.models.llama import (
+        init_kv_cache,
+        init_llama_params,
+        llama_forward,
+        llama_logits,
+    )
+    from dreamllm_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_cuda
+    from dreamllm_tpu_torch.serve.engine import ContinuousBatchingEngine, EngineConfig
+    from dreamllm_tpu_torch.train.optim8bit import adam8bit_update_cuda
+
+    device = "cuda"
+    cfg = dreamllm_7b(torch.bfloat16)[0].llm
+    gen = torch.Generator(device=device).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    sync = torch.cuda.synchronize
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dense = init_llama_params(cfg, generator=gen, device=device)
+        bf16_bytes = _nbytes(dense)
+        unfused, fused = _quantized_layouts(dense)
+    del dense
+    torch.cuda.empty_cache()
+    sync()
+    log(f"[serve-int4] {cfg.num_hidden_layers} layers, vocab {cfg.vocab_size}: weights "
+        f"{bf16_bytes / 2**30:.3f} GiB bf16 -> {_nbytes(fused) / 2**30:.3f} GiB int4 fused "
+        f"({_nbytes(unfused) / 2**30:.3f} unfused; embeddings and norms stay bf16), built and "
+        f"quantized in {time.perf_counter() - t0:.2f} s")
+
+    s_prompt, new = 128, 128
+    vocab = cfg.vocab_size
+    ids = torch.randint(10, min(31000, vocab), (8, s_prompt), generator=gen, device=device)
+    lens = torch.full((8,), s_prompt, dtype=torch.int32, device=device)
+
+    flash_attention.launches = flash_attention_bwd_cuda.launches = 0
+    adam8bit_update_cuda.launches = quant4.w4_matmul_cuda.launches = 0
+    gen_steps = 0
+    for label, b, cache_dtype in (("B1 bf16 cache", 1, torch.bfloat16),
+                                  ("B8 bf16 cache", 8, torch.bfloat16),
+                                  ("B8 int8 cache", 8, torch.int8)):
+        secs = {}
+        for n_new in (1, new):
+            sync()
+            t = time.perf_counter()
+            out = generate_text(fused, cfg, ids[:b], lens[:b],
+                                SamplingConfig(greedy=True, max_new_tokens=n_new,
+                                               eos_token_id=-1),
+                                cache_dtype=cache_dtype, device=device)
+            sync()
+            secs[n_new] = time.perf_counter() - t
+            toks = out["tokens"]
+            if (out["steps"] != n_new or not bool((out["lengths"] == n_new).all())
+                    or not bool(((toks >= 0) & (toks < vocab)).all())):
+                raise AssertionError(f"[serve-int4] generate_text {label}: steps {out['steps']}, "
+                                     f"lengths {out['lengths'].tolist()}")
+            gen_steps += out["steps"]
+        del out
+        step_ms = (secs[new] - secs[1]) / (new - 1) * 1e3
+        log(f"[serve-int4] generate_text {label}: {secs[new]:.3f} s for {b} x {new} tokens "
+            f"({b * new / secs[new]:.1f} tokens/s, prefill included); decode {step_ms:.2f} ms a "
+            f"step ({b * 1e3 / step_ms:.1f} tokens/s); prefill + 1 token {secs[1]:.3f} s")
+
+    ecfg = EngineConfig(slots=8, prefill_len=512, max_len=1024, chunk_steps=16,
+                        cache_dtype="bfloat16", bos_token_id=1)
+    eng = ContinuousBatchingEngine(unfused, cfg,
+                                   SamplingConfig(greedy=True, max_new_tokens=0,
+                                                  eos_token_id=-1, pad_token_id=0),
+                                   ecfg, device=device)
+    hgen = torch.Generator().manual_seed(3)
+    plens = torch.randint(64, 401, (16,), generator=hgen).tolist()
+    news = torch.randint(64, 129, (16,), generator=hgen).tolist()
+    reqs = [[1] + torch.randint(10, min(31000, vocab), (n - 1,), generator=hgen).tolist()
+            for n in plens]
+    answers, errors = [None] * 16, []
+
+    def ask(i):
+        try:
+            answers[i] = eng.submit(reqs[i], max_new_tokens=news[i], timeout=900)
+        except Exception as e:  # surfaced below: a kernel error must fail the run
+            errors.append(e)
+
+    t = time.perf_counter()
+    eng.warmup().start()
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(16)]
+        for th in threads[:8]:
+            th.start()
+        if not eng.wait_for_admissions(8, timeout=600):
+            raise AssertionError("[serve-int4] the engine did not admit the first 8 requests")
+        for th in threads[8:]:  # the second wave arrives while the first decodes
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+    finally:
+        eng.stop()
+    engine_s = time.perf_counter() - t
+    if errors:
+        raise errors[0]
+    for i, (a, n) in enumerate(zip(answers, news)):
+        if a is None or len(a) != n or not all(0 <= x < vocab for x in a):
+            raise AssertionError(f"[serve-int4] request {i}: {None if a is None else len(a)} "
+                                 f"tokens, want {n}")
+    launches = {"w4a16": quant4.w4_matmul_cuda.launches}
+    others = (flash_attention.launches, flash_attention_bwd_cuda.launches,
+              adam8bit_update_cuda.launches)
+    layers = cfg.num_hidden_layers
+    want = layers * (W4_PER_LAYER["fused"] * gen_steps + W4_PER_LAYER["unfused"] * eng.decode_steps)
+    if launches["w4a16"] != want or any(others):
+        raise AssertionError(f"[serve-int4] w4a16 launched {launches['w4a16']} times, want "
+                             f"{want}; flash fwd/bwd, adam8bit launched {others}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve-int4] engine (8 slots, prefill 512, max_len 1024, chunk 16, unfused int4): "
+        f"16 requests, prompts {min(plens)}-{max(plens)} tokens, {sum(news)} tokens generated in "
+        f"{engine_s:.3f} s ({sum(news) / engine_s:.1f} tokens/s); {eng.chunks_dispatched} chunks, "
+        f"{eng.decode_steps} decode forwards (warmup included, {warm_s:.3f} s); lanes busy "
+        f"{sum(eng.active_history) / max(1, len(eng.active_history)):.2f} on average")
+    log(f"[serve-int4] w4a16 launches {launches['w4a16']} = {layers} layers x (4 x {gen_steps} "
+        f"generate_text forwards + 7 x {eng.decode_steps} engine forwards); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    # one decode step at batch 8, kernel against plain version, same cache
+    cache = init_kv_cache(cfg, 8, s_prompt + 1, device=device)
+    with torch.no_grad():
+        llama_forward(fused, cfg, input_ids=ids, kv_cache=cache)
+        tok = torch.randint(10, min(31000, vocab), (8, 1), generator=gen, device=device)
+        snap = {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+
+        def step():
+            c = {k: v.clone() if torch.is_tensor(v) else v for k, v in snap.items()}
+            o = llama_forward(fused, cfg, input_ids=tok, kv_cache=c)
+            return llama_logits(fused, cfg, o["last_hidden_state"])[:, 0]
+
+        got = step()
+        kernel = quant4.w4_matmul_cuda
+        quant4.w4_matmul_cuda = lambda x, t: quant4.w4_matmul_reference(x, t)  # noqa: E731
+        try:
+            want_logits = step()
+        finally:
+            quant4.w4_matmul_cuda = kernel
+        sync()
+        diff = got - want_logits
+        rel = (diff.norm() / want_logits.norm()).item()
+        agree = (got.argmax(-1) == want_logits.argmax(-1)).float().mean().item()
+        if not math.isfinite(rel) or rel > W4_STEP_REL_RMS:
+            raise AssertionError(f"[serve-int4] decode-step logits, kernel vs plain: relative "
+                                 f"RMS {rel} > {W4_STEP_REL_RMS}")
+        log(f"[serve-int4] one decode step's logits, kernel vs plain version: relative RMS "
+            f"{rel:.3e} (limit {W4_STEP_REL_RMS}), max-abs {diff.abs().max().item():.3e} of "
+            f"{want_logits.abs().max().item():.3e}, argmax agrees on {agree:.0%} of 8 rows")
+        if profile_dir:
+            _profile(step, "int4_decode_step_b8", profile_dir, top=12)
+    return launches
+
+
 def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8) -> None:
     """Wall time of ``fn`` (synchronised, unprofiled), then one profiled run:
     device time summed over the CUDA kernels, the busy share, the top
@@ -1010,7 +1489,7 @@ def _leaves(tree):
 # path as (shape-name prefix, launches per unit of work)). flash_fwd keeps the
 # serving mix (one UNet forward: 5 launches at each level); flash_bwd and
 # adam8bit take one train step's (the UNet's first 64x64 site needs no
-# backward, see phase_train).
+# backward, see phase_train); w4a16 one fused int4 decode step's.
 KERNELS = {
     "flash_fwd": ("dreamllm_tpu_torch/csrc/flash_fwd.cu", "dreamllm_tpu/ops/attention.py:133",
                   (("unet64x64", 5), ("unet32x32", 5))),
@@ -1018,15 +1497,19 @@ KERNELS = {
                   (("train causal-seg", 32), ("unet64x64", 4), ("unet32x32", 5))),
     "adam8bit": ("dreamllm_tpu_torch/csrc/adam8bit.cu", "dreamllm_tpu/train/optim8bit.py:64",
                  (("w_gate", 96), ("wq", 128), ("norm", 65))),
+    # one fused 7B decode step at batch 8: 32 launches at each shape
+    "w4a16": ("dreamllm_tpu_torch/csrc/w4a16.cu", "dreamllm_tpu/ops/quant4.py:114",
+              (("wqkv 4096x12288 B8", 32), ("wo 4096x4096 B8", 32),
+               ("w_gate_up 4096x22016 B8", 32), ("w_down 11008x4096 B8", 32))),
 }
 
 
 def kernel_line(checks: dict, launches: dict) -> dict:
-    """One entry per kernel. ``ms``, ``plain_ms``, ``library_ms`` and
-    ``bound_ms`` are means per launch over the kernel's main-path launch mix
-    (``KERNELS``); ``launches`` sums the serving and the training run, and
-    ``launches_by_path`` keeps them apart; ``per_shape`` keeps every shape
-    set."""
+    """One entry per kernel. ``ms``, ``plain_ms``, ``library_ms`` (device
+    times, :func:`device_ms`) and ``bound_ms`` are means per launch over the
+    kernel's main-path launch mix (``KERNELS``); ``launches`` sums the main
+    paths' runs, and ``launches_by_path`` keeps them apart; ``per_shape``
+    keeps every shape set, with ``call_ms`` (:func:`cuda_ms`) beside ``ms``."""
     out = []
     for name, (source, replaces, mix) in KERNELS.items():
         rows = checks[name]
@@ -1067,9 +1550,13 @@ def main() -> int:
     if not args.no_main:
         phase_small_reference()
         phase_small_train()
+        phase_small_quant()
         launches["serving"], model = phase_main(args.profile)
         model = list(model)  # phase_train empties it: nothing here keeps the parameters alive
         launches["training"] = phase_train(model, args.profile)
+        del model
+        torch.cuda.empty_cache()
+        launches["quantized_serving"] = phase_serve_int4(args.profile)
     log(line)
     print(json.dumps(kernel_line(checks, launches)))
     print(json.dumps({"ok": True, "device": {

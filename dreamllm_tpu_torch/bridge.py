@@ -10,7 +10,13 @@ taken from the JAX package (``jax.tree.map(np.asarray, params)``):
 * a 4-D leaf is a conv kernel: JAX stores HWIO, the port OIHW (kept
   channels-last, as the port's own init stores it);
 * matmul weights keep the JAX ``[in, out]`` layout (the port computes
-  ``x @ W``), so they copy as they are.
+  ``x @ W``), so they copy as they are;
+* a quantized weight (the JAX package's ``Q4Tensor`` with ``packed`` and
+  ``scale``, or ``QTensor`` with ``q`` and ``scale``, as numpy) fills a
+  :class:`~dreamllm_tpu_torch.ops.quant4.Q4Tensor` or
+  :class:`~dreamllm_tpu_torch.ops.quant.QTensor` of ``like`` field by
+  field; a stacked ``[L, K/2, N]`` packed leaf gives one 2-D ``Q4Tensor`` a
+  layer.
 
 Every leaf is cast to the dtype of its counterpart in ``like``. A leaf of
 ``like`` that ``tree`` lacks, a shape that disagrees, and a leaf of ``tree``
@@ -30,8 +36,23 @@ import numpy as np
 import torch
 
 from dreamllm_tpu_torch.device import resolve_device
+from dreamllm_tpu_torch.ops.quant import QTensor
+from dreamllm_tpu_torch.ops.quant4 import Q4Tensor
 
 Path = tuple
+
+# quantized weight types of the port -> their tensor fields, which the JAX
+# package's classes of the same names carry too
+_QUANT_FIELDS = {Q4Tensor: ("packed", "scale"), QTensor: ("q", "scale")}
+
+
+def _quant_fields(node):
+    """The tensor fields of a JAX quantized weight (duck-typed: the port
+    imports nothing of the JAX package), or None for any other node."""
+    for fields in _QUANT_FIELDS.values():
+        if all(hasattr(node, f) for f in fields) and not isinstance(node, (dict, list, tuple)):
+            return fields
+    return None
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:
@@ -88,13 +109,24 @@ def _convert(node, like, jpath: Path, index, stack_len, used, dev):
             raise ValueError(f"{_fmt(jpath)}: a layer stack inside a layer stack")
         # layer stack: leaf [L, ...] in JAX -> one dict per layer in the port
         return [_convert(node, s, jpath, i, len(like), used, dev) for i, s in enumerate(like)]
+    if type(like) in _QUANT_FIELDS:
+        fields = _QUANT_FIELDS[type(like)]
+        if _quant_fields(node) != fields:
+            raise TypeError(f"{_fmt(jpath)}: the port holds a {type(like).__name__} here, the JAX "
+                            f"tree a {type(node).__name__}")
+        return type(like)(*(_leaf(getattr(node, f), getattr(like, f), jpath + (f,), index,
+                                  stack_len, used, dev) for f in fields))
     if torch.is_tensor(like):
         return _leaf(node, like, jpath, index, stack_len, used, dev)
     raise TypeError(f"{_fmt(jpath)}: unexpected port leaf {type(like)}")
 
 
 def _jax_leaves(node, path: Path = ()):
-    if isinstance(node, dict):
+    fields = _quant_fields(node)
+    if fields is not None:
+        for f in fields:
+            yield path + (f,), getattr(node, f)
+    elif isinstance(node, dict):
         for k, v in node.items():
             yield from _jax_leaves(v, path + (k,))
     elif isinstance(node, (list, tuple)):

@@ -5,10 +5,17 @@ the JAX package stacks them on a leading ``L`` axis and scans). Matmul
 weights keep the JAX ``[in, out]`` layout, so a projection is ``x @ W``.
 
 The KV cache has the JAX package's static shape, ``k``/``v`` ``[L, B,
-max_len, Hkv, D]`` plus per-slot ``seg``/``pos`` metadata, and is updated
-IN PLACE: a forward with ``kv_cache=`` writes into the caller's buffers and
-returns the same dict with ``index`` advanced. A write past ``max_len``
-raises; JAX clamps it silently instead (a deliberate difference).
+max_len, Hkv, D]`` plus per-slot ``seg``/``pos`` metadata (and, for the int8
+cache, per-(slot, head) ``k_scale``/``v_scale``), and is updated IN PLACE: a
+forward with ``kv_cache=`` writes into the caller's buffers and returns the
+same dict with ``index`` advanced. A write past ``max_len`` raises; JAX
+clamps it silently instead (a deliberate difference).
+
+Every projection goes through :func:`dreamllm_tpu_torch.ops.quant.matmul`,
+so a layer may hold plain, int8 (``QTensor``) or int4 (``Q4Tensor``)
+weights, in the training layout (``wq``/``wk``/``wv``, ``w_gate``/``w_up``)
+or the fused serving layout of :func:`fuse_llama_params` (``wqkv``,
+``w_gate_up``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from dreamllm_tpu_torch.device import resolve_device
 from dreamllm_tpu_torch.ops.activations import swiglu
 from dreamllm_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from dreamllm_tpu_torch.ops.norms import rms_norm
+from dreamllm_tpu_torch.ops.quant import QTensor
+from dreamllm_tpu_torch.ops.quant import matmul as qmm
+from dreamllm_tpu_torch.ops.quant4 import Q4Tensor
 from dreamllm_tpu_torch.ops.rope import RopeConfig, apply_rope, rope_cos_sin
 
 Params = dict[str, Any]
@@ -120,41 +130,72 @@ def init_llama_params(cfg: LlamaConfig, *, generator: torch.Generator | None = N
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, *, device="cuda") -> Params:
-    """Static bf16 cache, whatever the model's dtype (as in JAX): k/v
-    ``[L, B, max_len, Hkv, D]``; ``seg`` (0 = empty slot) and ``pos``
-    ``[B, max_len]`` int32; ``index`` the next write offset (a Python int,
-    or a ``[B]`` tensor for per-row offsets). The int8 cache comes with the
-    quantized slice."""
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
+                  device="cuda") -> Params:
+    """Static cache, whatever the model's dtype (as in JAX): k/v
+    ``[L, B, max_len, Hkv, D]`` in ``dtype``; ``seg`` (0 = empty slot) and
+    ``pos`` ``[B, max_len]`` int32; ``index`` the next write offset (a Python
+    int, or a ``[B]`` tensor for per-row offsets).
+
+    ``dtype=torch.int8`` stores k/v as int8 codes with per-(slot, head)
+    float32 absmax scales ``k_scale``/``v_scale`` ``[L, B, max_len, Hkv]``:
+    half the cache's memory and read traffic of bf16."""
     dev = resolve_device(device)
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
         "seg": torch.zeros((batch, max_len), dtype=torch.int32, device=dev),
         "pos": torch.zeros((batch, max_len), dtype=torch.int32, device=dev),
         "index": 0,
     }
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+    return cache
+
+
+def check_cache_write(cap: int, idx, s: int) -> None:
+    """Raise if writing ``s`` rows at offset ``idx`` (an int, a 0-d or a
+    ``[B]`` tensor) passes the end of a ``cap``-row cache. A tensor offset
+    costs one host sync."""
+    if not torch.is_tensor(idx) or idx.ndim == 0:
+        lo = hi = int(idx)
+    else:
+        lo, hi = torch.stack([idx.min(), idx.max()]).tolist()
+    if lo < 0 or hi + s > cap:
+        raise IndexError(f"KV cache write at offsets [{lo}, {hi}] + {s} outside capacity {cap}")
 
 
 def cache_write(buf: torch.Tensor, val: torch.Tensor, idx) -> torch.Tensor:
     """Write ``val`` ``[B, s, ...]`` into ``buf`` ``[B, S, ...]`` at offset
     ``idx`` (an int or 0-d tensor: one slot range for every row; a ``[B]``
-    tensor: per-row offsets), in place. Raises if a write passes the end."""
+    tensor: per-row offsets), in place. The caller bounds the offsets first
+    (:func:`check_cache_write`, once a forward in :func:`llama_forward`)."""
     b, s = val.shape[:2]
-    cap = buf.shape[1]
     if not torch.is_tensor(idx) or idx.ndim == 0:
         i = int(idx)
-        if i < 0 or i + s > cap:
-            raise IndexError(f"KV cache write [{i}, {i + s}) outside capacity {cap}")
         buf[:, i:i + s] = val.to(buf.dtype)
         return buf
-    if int(idx.min()) < 0 or int(idx.max()) + s > cap:  # one host sync per call
-        raise IndexError(f"KV cache write at offsets {idx.tolist()} + {s} outside capacity {cap}")
     rows = torch.arange(b, device=buf.device)[:, None]
     cols = idx.to(buf.device).long()[:, None] + torch.arange(s, device=buf.device)[None]
     buf[rows, cols] = val.to(buf.dtype)
     return buf
+
+
+def _kv_quantize(x: torch.Tensor):
+    """``[B, S, H, D]`` -> (int8 codes, ``[B, S, H]`` float32 scales):
+    per-(slot, head) absmax / 127, rounded half to even as in JAX. JAX runs
+    this inside its compiled layer scan, where XLA turns the division by the
+    constant into a product with float32(1/127): so does the port."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8)
+    scale = scale * scale.new_tensor(1.0 / 127.0)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def _kv_dequantize(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (codes.float() * scale[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -165,29 +206,50 @@ def cache_write(buf: torch.Tensor, val: torch.Tensor, idx) -> torch.Tensor:
 def _attention(layer, x, cos, sin, cfg, segment_ids, cache_kv, cache_meta, use_flash):
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
-    q = (x @ layer["wq"]).reshape(b, s, hq, hd)
-    k = (x @ layer["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ layer["wv"]).reshape(b, s, hkv, hd)
+    if "wqkv" in layer:
+        # fused serving layout (fuse_llama_params): one projection, then a split
+        q, k, v = qmm(x, layer["wqkv"]).split([hq * hd, hkv * hd, hkv * hd], dim=-1)
+        q, k, v = q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
+    else:
+        q = qmm(x, layer["wq"]).reshape(b, s, hq, hd)
+        k = qmm(x, layer["wk"]).reshape(b, s, hkv, hd)
+        v = qmm(x, layer["wv"]).reshape(b, s, hkv, hd)
     q, k = apply_rope(q, k, cos, sin)
 
     if cache_kv is not None:
-        ck, cv = cache_kv  # [B, max_len, Hkv, D] views into the stacked cache
-        cache_write(ck, k, cache_meta["index"])
-        cache_write(cv, v, cache_meta["index"])
+        # views into the stacked cache: (k, v) or, int8, (k, v, k_scale, v_scale);
+        # the offsets were checked once for the whole forward
+        idx = cache_meta["index"]
+        if len(cache_kv) == 4:
+            ck, cv, sk, sv = cache_kv
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            for buf, val in ((ck, kq), (cv, vq), (sk, ks), (sv, vs)):
+                cache_write(buf, val, idx)
+            kd, vd = _kv_dequantize(ck, sk, q.dtype), _kv_dequantize(cv, sv, q.dtype)
+        else:
+            ck, cv = cache_kv
+            cache_write(ck, k, idx)
+            cache_write(cv, v, idx)
+            kd, vd = ck.to(q.dtype), cv.to(q.dtype)
         # positional-causal mask over the whole cache, built once per call
-        out = dot_product_attention(q, ck.to(q.dtype), cv.to(q.dtype), bias=cache_meta["bias"])
+        out = dot_product_attention(q, kd, vd, bias=cache_meta["bias"])
     elif use_flash:
         out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
     else:
         out = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids)
-    return out.reshape(b, s, hq * hd) @ layer["wo"]
+    return qmm(out.reshape(b, s, hq * hd), layer["wo"])
 
 
 def _decoder_layer(layer, x, cos, sin, cfg, segment_ids, cache_kv, cache_meta, use_flash):
     x = x + _attention(layer, rms_norm(x, layer["input_norm"], cfg.rms_norm_eps),
                        cos, sin, cfg, segment_ids, cache_kv, cache_meta, use_flash)
     y = rms_norm(x, layer["post_attn_norm"], cfg.rms_norm_eps)
-    return x + swiglu(y @ layer["w_gate"], y @ layer["w_up"]) @ layer["w_down"]
+    if "w_gate_up" in layer:
+        gate, up = qmm(y, layer["w_gate_up"]).chunk(2, dim=-1)
+    else:
+        gate, up = qmm(y, layer["w_gate"]), qmm(y, layer["w_up"])
+    return x + qmm(swiglu(gate, up), layer["w_down"])
 
 
 def _dots_contexts():
@@ -277,6 +339,7 @@ def llama_forward(
     cache_meta = None
     if kv_cache is not None:
         idx = kv_cache["index"]
+        check_cache_write(kv_cache["seg"].shape[1], idx, s)  # once for every write below
         seg = cache_write(kv_cache["seg"], segment_ids, idx)
         pos = cache_write(kv_cache["pos"], positions, idx)
         keep = ((pos[:, None, :] <= positions[:, :, None])
@@ -290,7 +353,10 @@ def llama_forward(
                        len(params["layers"]))
     stats = []
     for li, layer in enumerate(params["layers"]):
-        ckv = (kv_cache["k"][li], kv_cache["v"][li]) if kv_cache is not None else None
+        ckv = None
+        if kv_cache is not None:
+            ckv = tuple(kv_cache[n][li] for n in ("k", "v", "k_scale", "v_scale")
+                        if n in kv_cache)
         if plan[li] is None:
             x = _decoder_layer(layer, x, cos, sin, cfg, segment_ids, ckv, cache_meta, use_flash)
         else:
@@ -309,6 +375,19 @@ def llama_forward(
     return out
 
 
+def fuse_llama_params(params: Params) -> Params:
+    """Serving transform: concatenate q/k/v and gate/up so each decoder layer
+    runs two fewer projections. Composes with quantization (quantize AFTER
+    fusing, as the JAX package's int8 serving does)."""
+    layers = []
+    for layer in params["layers"]:
+        layer = dict(layer)
+        layer["wqkv"] = torch.cat([layer.pop("wq"), layer.pop("wk"), layer.pop("wv")], dim=-1)
+        layer["w_gate_up"] = torch.cat([layer.pop("w_gate"), layer.pop("w_up")], dim=-1)
+        layers.append(layer)
+    return {**params, "layers": layers}
+
+
 def llama_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     """LM head with float32 logits.
 
@@ -318,8 +397,16 @@ def llama_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor) -> torc
     both operands go up to float32 first: exact products, float32 sums, the
     JAX result. The cost is a float32 copy of the head on every call (0.5 GB
     for the 7B ``[4096, 32064]`` head).
+
+    A quantized head (``Q4Tensor``/``QTensor``) takes the float32 hidden
+    state through the projection dispatch, as in JAX: float32 in, float32
+    logits out (an int4 head goes through the w4a16 kernel's function when
+    its width is a multiple of 128, else through the float32 dequantize
+    product).
     """
     w = params.get("lm_head")
     if w is None:
         w = params["embed_tokens"].T
+    if isinstance(w, (Q4Tensor, QTensor)):
+        return qmm(hidden.float(), w)
     return hidden.float() @ w.float()

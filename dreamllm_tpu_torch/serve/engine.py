@@ -1,0 +1,754 @@
+"""Continuous-batching decode engine (port of ``dreamllm_tpu/serve/engine.py``,
+its default path).
+
+Requests are admitted into per-slot KV-cache lanes while the other slots
+keep decoding:
+
+  * static shapes: ``slots`` lanes of ``max_len`` cache rows; a prompt
+    prefills as a host loop of ``prefill_len``-token appends into a one-lane
+    cache (chunked prefill), which is then copied into a free lane;
+  * per-lane int32 cache offsets (the vector ``cache_write`` of
+    ``models/llama.py``): each lane fills at its own rate;
+  * decode runs in chunks of ``chunk_steps`` steps over every lane at once;
+    admission happens at chunk boundaries, so its latency is bounded by a
+    chunk;
+  * a freed lane is recycled by rewriting its seg/pos metadata at insert;
+    stale K/V need no zeroing (positional masking keeps them invisible).
+
+Where JAX compiles three programs (prefill chunk, insert, decode chunk),
+the port runs the same functions eagerly on the card: a decode chunk is a
+Python loop of ``chunk_steps`` forwards whose only host sync is the cache
+bound check of each forward (``models/llama.py check_cache_write``). The
+scheduler keeps JAX's pipeline: chunk N+1 is enqueued before chunk N's
+tokens are read, which were copied to pinned host memory behind an event.
+
+Greedy output is token-identical to ``generate_text``. A sampled request
+draws each token from a ``torch.Generator`` seeded from (request seed,
+sample index) only, so its output does not depend on its slot or its
+co-tenants (JAX keeps the property through ``_stream_key``).
+
+Not in this module yet (ROADMAP #15/#16): per-slot speculative decoding,
+the prompt-prefix KV cache and prompt-embeddings prefill raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from collections import deque
+from typing import Callable
+
+import torch
+
+from dreamllm_tpu_torch.device import resolve_device
+from dreamllm_tpu_torch.generation.sampler import (
+    SamplingConfig,
+    sample_token_per_row,
+    validate_sampling,
+)
+from dreamllm_tpu_torch.models.llama import (
+    LlamaConfig,
+    init_kv_cache,
+    llama_forward,
+    llama_logits,
+)
+from dreamllm_tpu_torch.utils.errors import ClientError
+from dreamllm_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("dreamllm_tpu_torch.serve.engine")
+
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+_M64 = (1 << 64) - 1
+
+
+def stream_generator(seed: int, idx: int, device) -> torch.Generator:
+    """The generator of sample ``idx`` of a request's sampling stream,
+    derived from (request seed, sample index) only, so a request's sampled
+    output does not depend on its slot, admission order or co-tenants. The
+    pair is mixed by splitmix64, so every bit of the generator's seed
+    depends on both (the CPU generator keeps only the low 32 bits)."""
+    z = ((((seed & 0xFFFFFFFF) << 32) | (idx & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    g = torch.Generator(device=device)
+    g.manual_seed(z ^ (z >> 31))
+    return g
+
+
+def left_truncate_keep_bos(ids: list[int], cap: int, bos_token_id: int | None) -> list[int]:
+    """Left-truncate an overlong prompt to ``cap`` tokens, keeping BOS at
+    position 0 when it is there (a copy of the JAX package's rule in
+    ``serve/batching.py``)."""
+    if len(ids) <= cap:
+        return list(ids)
+    head = [ids[0]] if bos_token_id is not None and ids and ids[0] == bos_token_id else []
+    return head + list(ids[-(cap - len(head)):])
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    slots: int = 8              # concurrent cache lanes
+    prefill_len: int = 512      # tokens per prefill chunk (chunked prefill)
+    max_len: int = 1024         # per-lane KV capacity (prompt + generated)
+    chunk_steps: int = 8        # decode steps per scheduled chunk
+    cache_dtype: str = "bfloat16"   # or "int8" (halved KV memory)
+    bos_token_id: int | None = 1    # kept at position 0 when left-truncating
+    speculative_k: int = 0          # per-slot speculative decoding: ROADMAP #15
+    # per-lane capacity for single-token stop separators: each request may
+    # pass up to this many stop_token_ids; they halt the lane WITHOUT being
+    # emitted (EOS semantics)
+    max_stop_tokens: int = 4
+    prefix_cache_entries: int = 0   # the prompt-prefix KV cache: ROADMAP #16
+
+
+# ---------------------------------------------------------------------------
+# Device functions of the state
+# ---------------------------------------------------------------------------
+
+
+def init_engine_state(llm_cfg: LlamaConfig, ecfg: EngineConfig, *, device="cuda") -> dict:
+    dev = resolve_device(device)
+    s = ecfg.slots
+    cache = init_kv_cache(llm_cfg, s, ecfg.max_len, dtype=_CACHE_DTYPES[ecfg.cache_dtype],
+                          device=dev)
+    cache["index"] = torch.zeros((s,), dtype=torch.int32, device=dev)  # per-lane offsets
+    return {
+        "cache": cache,
+        "cur_tok": torch.zeros((s,), dtype=torch.int32, device=dev),
+        "active": torch.zeros((s,), dtype=torch.bool, device=dev),
+        # per-slot single-token stop set (-1 = empty; never a token id)
+        "halt": torch.full((s, ecfg.max_stop_tokens), -1, dtype=torch.int32, device=dev),
+        "emitted": torch.zeros((s,), dtype=torch.int32, device=dev),
+        "budget": torch.zeros((s,), dtype=torch.int32, device=dev),
+        # per-slot sampling parameters (insert sets the real values)
+        "greedy": torch.ones((s,), dtype=torch.bool, device=dev),
+        "temperature": torch.ones((s,), dtype=torch.float32, device=dev),
+        "top_k": torch.zeros((s,), dtype=torch.int32, device=dev),
+        "top_p": torch.ones((s,), dtype=torch.float32, device=dev),
+    }
+
+
+def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConfig, *,
+                    device="cuda"):
+    """Build ``(prefill_chunk_fn, insert_fn, decode_chunk_fn)``, the
+    counterparts of JAX's three compiled programs, as eager functions that
+    update the state in place."""
+    if ecfg.speculative_k:
+        raise NotImplementedError("speculative_k > 0: per-slot speculative decoding waits for "
+                                  "ROADMAP #15")
+    if ecfg.prefix_cache_entries:
+        raise NotImplementedError("prefix_cache_entries > 0: the prompt-prefix KV cache waits "
+                                  "for ROADMAP #16")
+    P, S, K = ecfg.prefill_len, ecfg.max_len, ecfg.chunk_steps
+    if S % P != 0:
+        # the final prefill chunk writes a full P-row slice at its start
+        raise ValueError(f"max_len ({S}) must be a multiple of prefill_len ({P})")
+    dev = resolve_device(device)
+    cache_dtype = _CACHE_DTYPES[ecfg.cache_dtype]
+    lane_names = ("k", "v", "k_scale", "v_scale")
+    arange_p = torch.arange(P, dtype=torch.int32, device=dev)[None]
+    arange_s = torch.arange(S, dtype=torch.int32, device=dev)
+    pre: dict = {}
+
+    def empty_prefill_cache():
+        """The one-lane prefill cache, lane-sized so its rows copy straight
+        into an engine lane. One buffer serves every admission: its seg/pos
+        are cleared here, its stale K/V stay masked; reuse is ordered after
+        the previous insert's copy on the stream."""
+        if not pre:
+            pre.update(init_kv_cache(llm_cfg, 1, S, dtype=cache_dtype, device=dev))
+        pre["seg"].zero_()
+        pre["pos"].zero_()
+        pre["index"] = 0
+        return pre
+
+    def _first_token(logits, samp):
+        if samp["greedy"]:
+            return logits.argmax(dim=-1).to(torch.int32)
+        gen = stream_generator(samp["seed"], 0, dev)  # sample index 0 of the stream
+        return sample_token_per_row(
+            logits, torch.zeros((1,), dtype=torch.bool, device=dev),
+            torch.full((1,), samp["temperature"], device=dev),
+            torch.full((1,), samp["top_k"], device=dev),
+            torch.full((1,), samp["top_p"], device=dev), [gen])
+
+    def prefill_chunk_fn(params, cache, ids, clen: int, start: int, samp):
+        """Append ONE P-token chunk (right-padded, ``clen`` real) at offset
+        ``start``. Returns (cache, first token ``[1]``), the token meaningful
+        only on the final chunk."""
+        seg = (arange_p < clen).to(torch.int32)
+        cache["index"] = start
+        out = llama_forward(params, llm_cfg, input_ids=ids, segment_ids=seg,
+                            positions=torch.where(seg == 1, arange_p + start, 0), kv_cache=cache)
+        last = out["last_hidden_state"][:, max(clen - 1, 0)][:, None]
+        return out["kv_cache"], _first_token(llama_logits(params, llm_cfg, last)[:, 0], samp)
+
+    def insert_fn(state, pre_cache, plen: int, slot: int, first_tok, budget: int, samp, halt):
+        """Claim lane ``slot``: copy the prefilled K/V, reset the lane's
+        metadata and its per-request sampling parameters."""
+        cache = state["cache"]
+        for name in lane_names:
+            if name in cache:
+                cache[name][:, slot] = pre_cache[name][:, 0]
+        lane_seg = (arange_s < plen).to(torch.int32)
+        cache["seg"][slot] = lane_seg
+        cache["pos"][slot] = torch.where(lane_seg == 1, arange_s, 0)
+        cache["index"][slot] = plen
+        state["halt"][slot] = halt
+        first = first_tok.reshape(()).to(torch.int32)
+        eos_now = (first == scfg.eos_token_id) | (first == halt).any()
+        state["cur_tok"][slot] = first
+        state["active"][slot] = ~eos_now & (budget > 0)
+        state["emitted"][slot] = 0
+        state["budget"][slot] = budget
+        for name in ("greedy", "temperature", "top_k", "top_p"):
+            state[name][slot] = samp[name]
+        return state
+
+    def decode_chunk_fn(params, state, row_seeds=None):
+        """K decode steps over every lane. Returns ``(state, tokens [B, K],
+        valid [B, K], active [B] int32)``; the state is updated in place.
+
+        The step semantics are ``generate_text``'s: the carried token is
+        STORED this step and the sampled token becomes the next carry.
+        ``row_seeds``: None when every active lane is greedy (argmax, no
+        sort), else per lane ``(seed, first sample index of this chunk)`` or
+        None; step j of the chunk draws sample ``first + j``."""
+        cache = state["cache"]
+        cur, active = state["cur_tok"], state["active"]
+        emitted, budget = state["emitted"], state["budget"]
+        emits, valids = [], []
+        for j in range(K):
+            idx0 = cache["index"]
+            # a lane that filled its cache sits at S and is inactive: its
+            # (masked, seg 0) write goes to the last row instead
+            widx = torch.where(active, idx0, idx0.clamp_max(S - 1))
+            cache["index"] = widx
+            out = llama_forward(params, llm_cfg, input_ids=cur[:, None].long(),
+                                segment_ids=active[:, None].to(torch.int32),
+                                positions=widx[:, None], kv_cache=cache)
+            cache["index"] = torch.where(active, idx0 + 1, idx0)
+            logits = llama_logits(params, llm_cfg, out["last_hidden_state"])[:, 0]
+            emitted = emitted + active.to(torch.int32)
+            if row_seeds is None:
+                nxt = logits.argmax(dim=-1).to(torch.int32)
+            else:
+                # inactive lanes count as greedy: their token is never emitted
+                gens = [None if rs is None else stream_generator(rs[0], rs[1] + j, dev)
+                        for rs in row_seeds]
+                nxt = sample_token_per_row(logits, state["greedy"] | ~active,
+                                           state["temperature"], state["top_k"],
+                                           state["top_p"], gens)
+            emit = torch.where(active, cur, scfg.pad_token_id)
+            hit_stop = torch.zeros_like(active)
+            for t in scfg.stop_tokens:
+                hit_stop |= emit == t
+            valids.append(active)
+            emits.append(emit)
+            hit_halt = (nxt[:, None] == state["halt"]).any(dim=1)
+            active = (active & (nxt != scfg.eos_token_id) & ~hit_halt & ~hit_stop
+                      & (emitted < budget) & (cache["index"] < S))
+            cur = nxt
+        state.update(cur_tok=cur, active=active, emitted=emitted)
+        # routing goes by the validity mask, not by the pad id: a generated
+        # pad-id token (<unk> is id 0 in LLaMA vocabs) stays in the stream
+        return (state, torch.stack(emits, dim=1), torch.stack(valids, dim=1),
+                active.to(torch.int32))
+
+    prefill_chunk_fn.empty_cache = empty_prefill_cache
+    return prefill_chunk_fn, insert_fn, decode_chunk_fn
+
+
+# ---------------------------------------------------------------------------
+# Host orchestration
+# ---------------------------------------------------------------------------
+
+
+class _Request:
+    __slots__ = ("ids", "max_new_tokens", "tokens", "done", "slot", "stream", "error",
+                 "chunk_joined", "chunk_last", "samp", "abandoned", "stop_ids", "stop_fn")
+
+    def __init__(self, ids, max_new_tokens, stream=None, samp=None, stop_ids=(), stop_fn=None):
+        self.ids = ids
+        self.abandoned = False  # submitter timed out; skip at admission
+        self.stop_ids = tuple(stop_ids)  # single-token stops (device-side)
+        # host-side stop predicate over the accumulated ids, checked at
+        # chunk boundaries
+        self.stop_fn = stop_fn
+        self.max_new_tokens = max_new_tokens
+        self.samp = samp  # per-request sampling params (host floats/ints)
+        self.tokens: list[int] = []
+        self.done = threading.Event()
+        self.slot = -1
+        self.stream = stream  # optional per-token callback
+        self.error: Exception | None = None
+        # the first decode chunk whose results include this request; results
+        # of EARLIER chunks on a recycled lane belong to its predecessor
+        self.chunk_joined = -1
+        # the last chunk that can emit for it (at most chunk_steps a chunk):
+        # after it is dispatched the lane is certainly inactive
+        self.chunk_last = -1
+
+
+def _to_host(tensors):
+    """Start copying ``tensors`` to the host behind the work already
+    enqueued; returns (host tensors, event or None). On the card the copies
+    go to pinned memory without blocking, and the event marks when they
+    are complete; on the CPU the tensors are returned as they are."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+class ContinuousBatchingEngine:
+    """Slot-scheduled decode: submit token prompts, receive generated ids.
+
+    ``submit()`` is thread-safe and blocking (or pass ``stream`` for a
+    per-token callback). The engine thread admits waiting requests into free
+    lanes at every chunk boundary while busy lanes keep decoding. The
+    parameters must be on ``device``.
+    """
+
+    def __init__(self, params, llm_cfg: LlamaConfig, scfg: SamplingConfig,
+                 ecfg: EngineConfig | None = None, *, device="cuda"):
+        self.device = resolve_device(device)
+        if params["embed_tokens"].device.type != self.device.type:
+            raise ValueError(f"parameters are on {params['embed_tokens'].device}, "
+                             f"not {self.device}")
+        self.params = params
+        self.llm_cfg = llm_cfg
+        self.scfg = scfg
+        self.ecfg = ecfg or EngineConfig()
+        self.prefill_fn, self.insert_fn, self.decode_chunk_fn = make_engine_fns(
+            llm_cfg, scfg, self.ecfg, device=self.device)
+        self.state = init_engine_state(llm_cfg, self.ecfg, device=self.device)
+        self._queue: queue.Queue[_Request | None] = queue.Queue()
+        self._by_slot: dict[int, _Request] = {}
+        # requests whose lane was retired early (budget certainly exhausted
+        # in dispatched chunks) but whose final tokens are still in the
+        # un-fetched pending chunk
+        self._retired: list[_Request] = []
+        self._free = list(range(self.ecfg.slots))
+        self._thread: threading.Thread | None = None
+        self._stopped = False
+        self._submit_lock = threading.Lock()  # serializes submit vs stop drain
+        # `admissions` counts lane registrations; tests and load tools wait
+        # on it instead of polling _by_slot
+        self._adm_cond = threading.Condition()
+        self.admissions = 0
+        self.chunks_dispatched = 0
+        self.decode_steps = 0  # decode forwards run, warmup included
+        self.active_history: deque[int] = deque(maxlen=4096)
+        self._admit_count = 0
+
+    # -- public API --------------------------------------------------------
+
+    def start(self) -> "ContinuousBatchingEngine":
+        if self._thread is not None and self._thread.is_alive():
+            return self  # already running
+        self._stopped = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    @torch.no_grad()
+    def warmup(self) -> "ContinuousBatchingEngine":
+        """Run each function once on scratch / idle state before serving, so
+        that the first request does not pay one-time costs (the kernels'
+        build at their first launch, the allocator's first blocks) while
+        live lanes wait. Lane 0 is inserted with budget 0, i.e. inactive.
+        Must run before :meth:`start`."""
+        if self.running:
+            raise RuntimeError("warmup() must run before start()")
+        samp = {"greedy": True, "temperature": 1.0, "top_k": 0, "top_p": 1.0, "seed": 0}
+        ids = torch.zeros((1, self.ecfg.prefill_len), dtype=torch.long, device=self.device)
+        pre, first = self.prefill_fn(self.params, self.prefill_fn.empty_cache(), ids, 1, 0, samp)
+        halt = torch.full((self.ecfg.max_stop_tokens,), -1, dtype=torch.int32, device=self.device)
+        self.state = self.insert_fn(self.state, pre, 1, 0, first, 0, samp, halt)
+        out = self.decode_chunk_fn(self.params, self.state)
+        self.decode_steps += self.ecfg.chunk_steps
+        self.state = out[0]
+        self._deactivate(torch.zeros_like(self.state["active"]))
+        out[3].cpu()  # completes the work
+        return self
+
+    def wait_for_admissions(self, n: int, timeout: float | None = None) -> bool:
+        """Block until ``n`` lane registrations have happened since
+        construction. Returns False on timeout."""
+        with self._adm_cond:
+            return self._adm_cond.wait_for(lambda: self.admissions >= n, timeout)
+
+    def stop(self) -> None:
+        """Stop the loop and fail anything not finished.
+
+        - queued-but-not-admitted requests fail with "engine stopped";
+        - in-flight (admitted) requests fail with "engine stopped" and their
+          lanes are deactivated once the scheduler has exited;
+        - a request whose admission raced stop() (popped from the queue, not
+          yet registered) is failed by ``_admit``'s registration check,
+          which also deactivates the lane its insert just activated."""
+        with self._submit_lock:
+            self._stopped = True
+        self._queue.put(None)
+        t = self._thread
+        if t:
+            t.join(timeout=30)
+            if not t.is_alive():
+                self._thread = None
+        exc = RuntimeError("engine stopped")
+        # the sweep shares _submit_lock with _admit's registration: a live
+        # scheduler (timed-out join) cannot register a request behind it
+        swept_any = False
+        with self._submit_lock:
+            for slot in list(self._by_slot):
+                req = self._by_slot.pop(slot, None)
+                if req is None:
+                    continue
+                swept_any = True
+                req.error = exc
+                req.done.set()
+            # rebuild rather than append per slot: a racing _finish may have
+            # freed a slot already, and a duplicate entry would admit two
+            # requests into the same lane after a restart
+            self._free = [s for s in range(self.ecfg.slots) if s not in self._by_slot]
+            for req in self._retired:
+                swept_any = True
+                req.error = exc
+                req.done.set()
+            self._retired = []
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if req is not None:
+                    req.error = exc
+                    req.done.set()
+        # swept lanes are still active on the card: after stop()+start()
+        # they would decode as zombies. Deactivate them, but only once the
+        # scheduler thread has really exited (it may be mid-dispatch).
+        if swept_any and self._thread is None:
+            try:
+                self._deactivate(torch.ones_like(self.state["active"]))
+            except Exception:
+                logger.exception("post-stop lane deactivation failed")
+
+    def submit(
+        self,
+        prompt_ids: list[int] | None = None,
+        max_new_tokens: int = 128,
+        timeout: float | None = 600.0,
+        stream: Callable[[int], None] | None = None,
+        greedy: bool | None = None,
+        temperature: float | None = None,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        prompt_embeds=None,
+        seed: int | None = None,
+        stop_token_ids=(),
+        stop_fn=None,
+    ) -> list[int]:
+        """Block until the request finishes; returns the generated token ids
+        (EOS excluded). Prompts prefill in chunks; one longer than the lane
+        (``max_len - 1``) is truncated from the LEFT, BOS kept.
+
+        ``greedy``/``temperature``/``top_k``/``top_p`` override the engine's
+        SamplingConfig for this request only; passing any of the last three
+        implies ``greedy=False`` unless ``greedy`` is given. ``seed`` pins
+        the request's sampling stream (None: a per-admission seed).
+        ``stop_token_ids`` (up to ``EngineConfig.max_stop_tokens``) halt the
+        lane without emitting the token; ``stop_fn`` is a host predicate
+        over the accumulated ids, checked at chunk boundaries. An error of
+        the engine's thread (a kernel that fails, say) is raised here."""
+        if prompt_embeds is not None:
+            raise NotImplementedError("prompt_embeds: the engine's embeddings prefill waits for "
+                                      "ROADMAP #16")
+        s = self.scfg
+        if greedy is None:
+            greedy = s.greedy if temperature is None and top_k is None and top_p is None else False
+        samp = {
+            "greedy": bool(greedy),
+            "temperature": float(s.temperature if temperature is None else temperature),
+            "top_k": int(s.top_k if top_k is None else top_k),
+            "top_p": float(s.top_p if top_p is None else top_p),
+            "seed": None if seed is None else int(seed) & 0xFFFFFFFF,
+        }
+        validate_sampling(samp["temperature"], samp["top_k"], samp["top_p"])
+        req = _Request(list(prompt_ids or []), max_new_tokens, stream, samp,
+                       stop_ids=stop_token_ids, stop_fn=stop_fn)
+        if not req.ids:
+            raise ClientError("empty prompt (prepend a BOS token)")
+        if len(req.stop_ids) > self.ecfg.max_stop_tokens:
+            raise ClientError(f"{len(req.stop_ids)} stop_token_ids exceed the engine's "
+                              f"max_stop_tokens={self.ecfg.max_stop_tokens}")
+        with self._submit_lock:
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+            self._queue.put(req)
+        if not req.done.wait(timeout):
+            # best-effort cancel: a still-queued request is skipped at admission
+            req.abandoned = True
+            raise TimeoutError("engine request timed out")
+        if req.error is not None:
+            raise req.error
+        return req.tokens
+
+    # -- engine loop ---------------------------------------------------------
+
+    def _deactivate(self, mask: torch.Tensor) -> None:
+        """Host-initiated lane stop: clear ``active`` and the budget where
+        ``mask`` is set."""
+        self.state["active"] &= ~mask
+        self.state["budget"].masked_fill_(mask, 0)
+
+    def _admit(self, req: _Request) -> None:
+        P = self.ecfg.prefill_len
+        # the lane must hold prompt + at least one generated token
+        ids = left_truncate_keep_bos(req.ids, self.ecfg.max_len - 1, self.ecfg.bos_token_id)
+        plen = len(ids)
+        self._admit_count += 1
+        samp = dict(req.samp)
+        if samp["seed"] is None:
+            # a per-admission stream: identical unseeded sampled prompts
+            # should not give identical outputs
+            samp["seed"] = self._admit_count
+        pre_cache = self.prefill_fn.empty_cache()
+        first = None
+        ids_t = torch.tensor(ids, dtype=torch.long)
+        for start in range(0, plen, P):
+            chunk = ids_t[start:start + P]
+            padded = torch.zeros((1, P), dtype=torch.long)
+            padded[0, :len(chunk)] = chunk
+            pre_cache, first = self.prefill_fn(self.params, pre_cache,
+                                               padded.to(self.device, non_blocking=True),
+                                               len(chunk), start, samp)
+        slot = self._free.pop()
+        try:
+            budget = min(req.max_new_tokens, self.ecfg.max_len - plen)
+            halt = torch.full((self.ecfg.max_stop_tokens,), -1, dtype=torch.int32)
+            if req.stop_ids:
+                halt[:len(req.stop_ids)] = torch.tensor(req.stop_ids, dtype=torch.int32)
+            self.state = self.insert_fn(self.state, pre_cache, plen, slot, first, budget, samp,
+                                        halt.to(self.device))
+        except Exception as e:
+            self._free.append(slot)  # don't leak the lane on a failed insert
+            self._fail_all(e)
+            raise
+        req.slot = slot
+        req.samp = samp
+        # no host sync here: a budget<=0 or first-token-EOS lane was inserted
+        # inactive and finishes when its first chunk's results come back
+        req.chunk_joined = self.chunks_dispatched
+        req.chunk_last = req.chunk_joined + -(-max(budget, 0) // self.ecfg.chunk_steps) - 1
+        # registration is mutually exclusive with stop()'s sweep: if stop ran
+        # since the loop's _stopped check, failing the request NOW is the only
+        # way its submitter wakes up
+        with self._submit_lock:
+            if self._stopped:
+                # stop()'s sweep may already have rebuilt _free with this slot
+                if slot not in self._free:
+                    self._free.append(slot)
+                # the insert above activated the lane, and the sweep saw an
+                # empty _by_slot: deactivate it here, or a restart resumes it
+                # as a zombie
+                try:
+                    mask = torch.zeros((self.ecfg.slots,), dtype=torch.bool)
+                    mask[slot] = True
+                    self._deactivate(mask.to(self.device))
+                except Exception:
+                    logger.exception("stop-race lane deactivation failed")
+                req.error = RuntimeError("engine stopped")
+                req.done.set()
+                return
+            self._by_slot[slot] = req
+        with self._adm_cond:
+            self.admissions += 1
+            self._adm_cond.notify_all()
+
+    def _finish(self, slot: int) -> None:
+        req = self._by_slot.pop(slot)
+        self._free.append(slot)
+        req.done.set()
+
+    @staticmethod
+    def _deliver(req, row_toks, row_valid) -> None:
+        """Append one chunk row's valid tokens to ``req`` (+ stream them). A
+        raising stream callback is logged once and disabled for that
+        request; tokens still accumulate."""
+        for t, ok in zip(row_toks, row_valid):
+            if not ok:
+                continue
+            t = int(t)
+            req.tokens.append(t)
+            if req.stream:
+                try:
+                    req.stream(t)
+                except Exception:
+                    logger.exception("stream callback failed; disabling")
+                    req.stream = None
+
+    def _route(self, toks, valid, chunk_idx: int) -> None:
+        """Distribute a chunk's ``[B, K]`` tokens to their requests, by the
+        validity mask. Requests that joined AFTER this chunk was dispatched
+        (a recycled lane) are skipped."""
+        for slot, req in list(self._by_slot.items()):
+            if req.chunk_joined > chunk_idx:
+                continue
+            self._deliver(req, toks[slot], valid[slot])
+
+    def _fail_all(self, exc: Exception) -> None:
+        """A scheduler error fails every in-flight request visibly (each
+        submitter raises it), frees their lanes and re-initializes the
+        device state, which the failed step may have left half-written."""
+        logger.exception("engine loop error")
+        for slot in list(self._by_slot):
+            req = self._by_slot.pop(slot)
+            req.error = exc
+            req.done.set()
+        for req in self._retired:
+            req.error = exc
+            req.done.set()
+        self._retired = []
+        self._free = list(range(self.ecfg.slots))
+        try:
+            self.state = init_engine_state(self.llm_cfg, self.ecfg, device=self.device)
+        except Exception:
+            logger.exception("engine state re-init failed; engine is down")
+            self._stopped = True
+
+    def _row_seeds(self, chunk_idx: int):
+        """Per lane, the (seed, first sample index) of this chunk's draws, or
+        None where the lane is empty or greedy; None when no lane samples.
+        A lane that is active at a chunk has emitted ``chunk_steps`` tokens
+        in each earlier chunk since it joined, so the index is known on the
+        host without reading the card."""
+        K = self.ecfg.chunk_steps
+        seeds = [None] * self.ecfg.slots
+        for slot, req in self._by_slot.items():
+            if not req.samp["greedy"]:
+                seeds[slot] = (req.samp["seed"], K * (chunk_idx - req.chunk_joined) + 1)
+        return None if all(s is None for s in seeds) else seeds
+
+    def _loop(self) -> None:
+        with torch.no_grad():
+            self._loop_body()
+
+    def _loop_body(self) -> None:
+        """Pipelined scheduler: chunk N+1 is enqueued before chunk N's
+        results are read, so the host's routing of chunk N overlaps the
+        card's work on chunk N+1. Results (finishes, lane frees, stream
+        callbacks) therefore lag one chunk; a finished lane decodes one more
+        chunk with active=False, emitting only masked-invalid rows."""
+        pending = None  # (chunk_idx, host toks, host valid, host active, event)
+        while not self._stopped:
+            # retire lanes whose occupant has CERTAINLY exhausted its budget
+            # in the chunks already dispatched; EOS-terminated requests free
+            # one chunk later through the active mask below
+            for slot in list(self._by_slot):
+                r = self._by_slot[slot]
+                if self.chunks_dispatched > r.chunk_last:
+                    del self._by_slot[slot]
+                    self._free.append(slot)
+                    if pending is None:
+                        r.done.set()
+                    else:
+                        self._retired.append(r)
+            # admit as many waiting requests as there are free lanes; block
+            # only when fully idle
+            block = not self._by_slot and pending is None
+            while self._free:
+                try:
+                    req = self._queue.get(block=block, timeout=0.1 if block else None)
+                except queue.Empty:
+                    break
+                if req is None:
+                    return
+                if req.abandoned:
+                    req.done.set()
+                    block = False
+                    continue
+                try:
+                    self._admit(req)
+                except Exception as e:
+                    req.error = e
+                    req.done.set()
+                    logger.exception("admission failed")
+                block = False
+            new_pending = None
+            if self._by_slot:
+                try:
+                    chunk_idx = self.chunks_dispatched
+                    self.state, toks, valid, active = self.decode_chunk_fn(
+                        self.params, self.state, self._row_seeds(chunk_idx))
+                    self.chunks_dispatched += 1
+                    self.decode_steps += self.ecfg.chunk_steps
+                    self.active_history.append(len(self._by_slot))
+                    new_pending = (chunk_idx, *_to_host([toks, valid, active]))
+                except Exception as e:
+                    pending = None  # the failed run invalidates in-flight results
+                    self._fail_all(e)
+                    continue
+            if pending is not None:
+                chunk_idx, (toks_h, valid_h, active_h), ev = pending
+                try:
+                    if ev is not None:
+                        ev.synchronize()
+                    toks_l, valid_l, active_l = toks_h.tolist(), valid_h.tolist(), active_h.tolist()
+                except Exception as e:
+                    pending = None
+                    self._fail_all(e)
+                    continue
+                self._route(toks_l, valid_l, chunk_idx)
+                # early-retired requests: route their final rows from this
+                # chunk, complete those whose last possible chunk this was
+                still = []
+                for r in self._retired:
+                    if r.chunk_joined <= chunk_idx <= r.chunk_last:
+                        self._deliver(r, toks_l[r.slot], valid_l[r.slot])
+                    if chunk_idx >= r.chunk_last:
+                        r.done.set()
+                    else:
+                        still.append(r)
+                self._retired = still
+                for slot in list(self._by_slot):
+                    r = self._by_slot[slot]
+                    if r.chunk_joined <= chunk_idx and not active_l[slot]:
+                        self._finish(slot)
+                # host-side stop predicates retire their lanes now
+                host_stops = []
+                for slot in list(self._by_slot):
+                    r = self._by_slot[slot]
+                    if r.stop_fn is not None and r.chunk_joined <= chunk_idx and r.tokens:
+                        try:
+                            hit = bool(r.stop_fn(r.tokens))
+                        except Exception:
+                            logger.exception("stop_fn failed; disabling")
+                            r.stop_fn = None
+                            continue
+                        if hit:
+                            host_stops.append(slot)
+                if host_stops:
+                    mask = torch.zeros((self.ecfg.slots,), dtype=torch.bool)
+                    mask[host_stops] = True
+                    try:
+                        self._deactivate(mask.to(self.device))
+                    except Exception as e:
+                        pending = None
+                        self._fail_all(e)
+                        continue
+                    for slot in host_stops:
+                        self._finish(slot)
+            pending = new_pending

@@ -48,6 +48,12 @@ def test_walk_covers_the_training_subpackage():
         assert f"dreamllm_tpu_torch/train/{mod}.py" in names
 
 
+def test_walk_covers_the_serving_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("serve/engine", "ops/quant", "ops/quant4", "utils/errors", "generation/sampler"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
+
+
 CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 
 
@@ -69,7 +75,7 @@ def test_kernel_sources_are_hand_written_cuda(path):
 
 
 def test_every_kernel_source_is_listed():
-    assert [p.name for p in CSRC] == ["adam8bit.cu", "flash_bwd.cu", "flash_fwd.cu"]
+    assert [p.name for p in CSRC] == ["adam8bit.cu", "flash_bwd.cu", "flash_fwd.cu", "w4a16.cu"]
 
 
 def test_package_import_loads_no_jax_and_builds_nothing():
@@ -87,6 +93,7 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import dreamllm_tpu_torch.generation.interleaved, dreamllm_tpu_torch.configs\n"
         "import dreamllm_tpu_torch.bridge, dreamllm_tpu_torch.train.trainer\n"
         "import dreamllm_tpu_torch.train.optim, dreamllm_tpu_torch.train.checkpoints\n"
+        "import dreamllm_tpu_torch.serve.engine, dreamllm_tpu_torch.ops.quant\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )

@@ -96,12 +96,27 @@ def test_cache_write_vector_index_matches_jax():
 
 
 def test_cache_overflow_raises():
-    """JAX clamps a write past the end silently; the port raises."""
-    buf = torch.zeros((1, 4, 2))
+    """JAX clamps a write past the end silently; the port raises, once a
+    forward and before any write (``check_cache_write``)."""
     with pytest.raises(IndexError):
-        pllama.cache_write(buf, torch.ones((1, 2, 2)), 3)
+        pllama.check_cache_write(4, 3, 2)
     with pytest.raises(IndexError):
-        pllama.cache_write(buf, torch.ones((1, 1, 2)), torch.tensor([4]))
+        pllama.check_cache_write(4, torch.tensor([4]), 1)
+    with pytest.raises(IndexError):
+        pllama.check_cache_write(4, torch.tensor([-1, 0]), 1)
+    pllama.check_cache_write(4, torch.tensor([0, 2]), 2)  # the last row fits
+    # through the forward: a full cache refuses one more token, unchanged
+    _, pc, _, pp = llama_params()
+    cache = pllama.init_kv_cache(pc, 2, 4, device="cpu")
+    ids = torch.ones((2, 4), dtype=torch.long)
+    cache = pllama.llama_forward(pp, pc, input_ids=ids, kv_cache=cache)["kv_cache"]
+    before = {k: v.clone() for k, v in cache.items() if torch.is_tensor(v)}
+    for idx in (4, torch.tensor([3, 4], dtype=torch.int32)):
+        cache["index"] = idx
+        with pytest.raises(IndexError):
+            pllama.llama_forward(pp, pc, input_ids=ids[:, :1], kv_cache=cache)
+        for k, v in before.items():
+            assert torch.equal(cache[k], v), k
 
 
 def test_llama_logits_are_float32_from_bf16():
