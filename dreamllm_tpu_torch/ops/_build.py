@@ -4,8 +4,9 @@ a C interface → ctypes).
 Each ``csrc/*.cu`` compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``build/kernels/`` at
 the repository root, a directory that ``.gitignore`` lists. The library name
-carries a hash of its source, so an edited source rebuilds and an unchanged
-one loads at once. Nothing is built when this module is imported: the first
+carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header rebuilds and an unchanged one loads
+at once. Nothing is built when this module is imported: the first
 CUDA launch of a kernel builds it, and :func:`build_all` builds every source
 in parallel (one ``nvcc`` per source, all started together).
 """
@@ -40,7 +41,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any of them
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(name).stem}-{digest.hexdigest()[:16]}.so"
 
 

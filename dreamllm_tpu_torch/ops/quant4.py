@@ -134,13 +134,37 @@ def w4_matmul_reference(x: torch.Tensor, t: Q4Tensor) -> torch.Tensor:
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_WARPS = 4  # warps a kernel block
 
 
-def _chunks_per_split(kp: int, n: int) -> int:
-    """128-row chunks a block sums before its partial is written: enough
-    blocks for four per SM of the H100's 132, fewer partials to add."""
-    tiles = (n // 128) * (kp // _BLK_K)
-    return max(1, tiles // (4 * 132))
+def _plan(kp: int, n: int) -> tuple[int, int]:
+    """The kernel's grid: ``(tiles, blocks_k)``. A block's four warps own
+    ``tiles`` neighbouring 128-column tiles and split K ``4 / tiles`` ways;
+    ``blocks_k`` blocks (one thread block cluster) share those columns, so
+    the grid is ``(ceil(n / (128 * tiles)), blocks_k)`` and K is split
+    ``blocks_k * 4 / tiles`` ways, each a run of whole 128-row chunks.
+
+    Four tiles a block where that fills the H100's 132 SMs: ``blocks_k`` the
+    power of two up to 16 that gives each warp at least two chunks and the
+    grid at most three blocks an SM, doubled (up to one chunk a warp) while
+    the grid has fewer blocks than SMs. Where even that leaves fewer blocks
+    than SMs (the 4096-wide projections), one tile a block and up to 8
+    blocks, each warp at least one chunk: more, shorter runs. Measured at
+    the 7B shapes (PERF.md)."""
+    chunks = kp // _BLK_K
+    col_blocks = -(-(n // 128) // _WARPS)
+    bk = 1
+    while 2 * bk <= min(16, chunks // 2) and col_blocks * 2 * bk <= 3 * _SMS:
+        bk *= 2
+    while col_blocks * bk < _SMS and 2 * bk <= min(16, chunks):
+        bk *= 2
+    if col_blocks * bk >= _SMS:
+        return _WARPS, bk
+    bk = 1
+    while 2 * bk <= 8 and _WARPS * 2 * bk <= chunks and (n // 128) * 2 * bk <= 3 * _SMS:
+        bk *= 2
+    return 1, bk
 
 
 def w4_matmul_cuda(x: torch.Tensor, t: Q4Tensor) -> torch.Tensor:
@@ -167,12 +191,9 @@ def w4_matmul_cuda(x: torch.Tensor, t: Q4Tensor) -> torch.Tensor:
         raise ValueError(f"w4a16 kernel: packed {tuple(p.shape)}, scale {tuple(s.shape)}")
     if not (x.is_contiguous() and p.is_contiguous() and s.is_contiguous()):
         raise ValueError("w4a16 kernel: x, packed and scale must be contiguous")
-    if p.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError("w4a16 kernel: x and packed must be 16-byte aligned")
+    if p.data_ptr() % 16 or x.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("w4a16 kernel: x, packed and scale must be 16-byte aligned")
     b = x.shape[0]
-    chunks = _chunks_per_split(kp, n)
-    splits = -(-(kp // _BLK_K) // chunks)
-    partial = torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
 
     from dreamllm_tpu_torch.ops import _build
@@ -180,15 +201,15 @@ def w4_matmul_cuda(x: torch.Tensor, t: Q4Tensor) -> torch.Tensor:
     lib = _build.load("w4a16.cu")
     if not getattr(lib, "_dl_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.dl_w4a16.argtypes = [P] * 5 + [I] * 5 + [P]
+        lib.dl_w4a16.argtypes = [P] * 4 + [I] * 6 + [P]
         lib.dl_w4a16.restype = I
         lib.dl_cuda_error_string.argtypes = [I]
         lib.dl_cuda_error_string.restype = ctypes.c_char_p
         lib._dl_typed = True
 
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.dl_w4a16(x.data_ptr(), p.data_ptr(), s.data_ptr(), partial.data_ptr(),
-                       out.data_ptr(), _DTYPES[x.dtype], b, kp, n, chunks, stream)
+    err = lib.dl_w4a16(x.data_ptr(), p.data_ptr(), s.data_ptr(), out.data_ptr(),
+                       _DTYPES[x.dtype], b, kp, n, *_plan(kp, n), stream)
     if err != 0:
         raise RuntimeError(
             f"w4a16 kernel launch failed: {lib.dl_cuda_error_string(err).decode()} ({err})")

@@ -60,22 +60,29 @@ CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 @pytest.mark.parametrize("path", CSRC, ids=lambda p: p.name)
 def test_kernel_sources_are_hand_written_cuda(path):
     """Every file under ``csrc/`` is a CUDA source that includes only the
-    CUDA runtime and standard headers: no cuBLAS, cuDNN, CUTLASS or PyTorch
-    header, and no word of JAX."""
+    CUDA runtime, the low-level CUDA API's declarations (``cuda.h``: the tensor-map
+    types TMA needs), standard headers and the shared headers beside it: no
+    cuBLAS, cuDNN, CUTLASS or PyTorch header, and no word of JAX. A source
+    defines its kernels and a C interface; a shared header defines neither."""
     assert path.suffix in (".cu", ".cuh"), path.name
     text = path.read_text()
     includes = [ln.split()[1].strip('<>"') for ln in text.splitlines()
                 if ln.startswith("#include")]
-    allowed = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h", "type_traits"}
+    allowed = {"cuda.h", "cuda_runtime.h", "cuda_bf16.h", "stdint.h", "type_traits"}
+    allowed |= {p.name for p in CSRC if p.suffix == ".cuh"}
     assert set(includes) <= allowed, set(includes) - allowed
     lowered = text.lower()
     for word in ("cublas", "cudnn", "cutlass", "torch/", "import jax", "optax", "orbax"):
         assert word not in lowered, word
-    assert '__global__' in text and 'extern "C"' in text
+    if path.suffix == ".cu":
+        assert '__global__' in text and 'extern "C"' in text
+    else:
+        assert '__global__' not in text and 'extern "C"' not in text
 
 
 def test_every_kernel_source_is_listed():
-    assert [p.name for p in CSRC] == ["adam8bit.cu", "flash_bwd.cu", "flash_fwd.cu", "w4a16.cu"]
+    assert [p.name for p in CSRC] == [
+        "adam8bit.cu", "flash_bwd.cu", "flash_fwd.cu", "sm90.cuh", "w4a16.cu"]
 
 
 def test_package_import_loads_no_jax_and_builds_nothing():

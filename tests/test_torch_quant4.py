@@ -191,6 +191,39 @@ def test_cuda_launch_refuses_cpu_tensors():
         pq4.w4_matmul_cuda(torch.zeros((1, 256)), wq)
 
 
+# DreamLLM-7B's decode projections [K, N] (chip_smoke.W4_SHAPES) and the smallest shape
+_KERNEL_GRID_SHAPES = {
+    "wqkv": (4096, 12288), "wo": (4096, 4096), "w_gate_up": (4096, 22016),
+    "w_gate": (4096, 11008), "w_down": (11008, 4096), "head32000": (4096, 32000),
+    "smallest": (256, 128),
+}
+
+
+@pytest.mark.parametrize("name", list(_KERNEL_GRID_SHAPES))
+def test_kernel_grid_covers_every_column_and_row(name):
+    k, nn = _KERNEL_GRID_SHAPES[name]
+    kp, chunks, tiles = k // 2, k // 256, nn // 128
+    per_block, blocks_k = pq4._plan(kp, nn)
+    splits = blocks_k * pq4._WARPS // per_block
+    # the grid (ceil(N / (128 * per_block)), blocks_k) of 4-warp blocks, a
+    # 128-column tile a warp: every column in one tile, warps past it idle
+    col_blocks = -(-tiles // per_block)
+    assert per_block in (1, pq4._WARPS) and tiles * 128 == nn
+    assert (col_blocks - 1) * per_block < tiles <= col_blocks * per_block
+    # the runs of 128-row chunks the kernel gives split s of `splits` cover
+    # each packed row once, in order, none more than one chunk longer
+    runs = [(s * chunks // splits, (s + 1) * chunks // splits) for s in range(splits)]
+    assert [c for b, e in runs for c in range(b, e)] == list(range(chunks))
+    assert all(e - b <= -(-chunks // splits) for b, e in runs)
+    # a cluster: a power of two up to 16 blocks, each with work
+    assert blocks_k & (blocks_k - 1) == 0 and 1 <= blocks_k <= min(16, chunks)
+    if per_block == pq4._WARPS:  # four tiles a block only where that fills the SMs
+        assert pq4._SMS <= col_blocks * blocks_k <= 3 * pq4._SMS
+    else:  # else one tile a block, every warp a chunk where there are enough
+        assert blocks_k <= 8 and (pq4._WARPS * blocks_k <= chunks or blocks_k == 1)
+        assert -(-tiles // pq4._WARPS) * 16 < pq4._SMS or 16 > chunks
+
+
 def test_gate_copies_jax():
     wq = pq4.quantize_int4(torch.zeros((256, 384)))
     assert pq4.kernel_takes((8, 256), wq) and pq4.kernel_takes((1, 256), wq)
