@@ -10,8 +10,8 @@ Phases, each on lines of its own; any failure exits non-zero:
 2. build: every ``dreamllm_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel (flash-attention forward and backward,
    fused 8-bit AdamW, w4a16 int4 matmul) against its plain PyTorch version
-   on the card at the shapes the main paths give it (the forward and the
-   int4 matmul also twice, for equal bits), timed beside the plain version,
+   on the card at the shapes the main paths give it (the flash kernels and
+   the int4 matmul also twice, for equal bits), timed beside the plain version,
    PyTorch's own library call where there is one, and the card's bound;
 4. small reference: a tiny random DreamLLM document, a tiny train step and
    a tiny int4 decoder's ``generate_text`` (batch 1 and 8) and engine (4
@@ -329,6 +329,32 @@ def grad_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, fl
             (diff.norm() / ref.norm()).item())
 
 
+def flash_bwd_tile_share(q, k, v, do, out, lse, seg, causal, scale):
+    """The tile pairs each pass of the backward kernel computed, counted by
+    the kernel itself (one more launch), as a share of the pass's causal
+    tile pairs: ``{"dkv": x, "dq": y}``. Raises unless both counts are what
+    the plain skip rule gives over the launcher's tiles."""
+    from dreamllm_tpu_torch.ops.attention import (
+        bwd_tiles,
+        flash_bwd_tile_pairs,
+        flash_bwd_tiles_computed,
+    )
+
+    b, s, hq, d = q.shape
+    counts = flash_bwd_tiles_computed(q, k, v, do, out, lse, seg, seg, causal=causal,
+                                      sm_scale=scale)
+    share = {}
+    for label, (qt, kt) in zip(("dkv", "dq"), bwd_tiles(d)):
+        rule = tuple(hq * (b if x is None else 1)
+                     * flash_bwd_tile_pairs(x, x, s, s, causal=causal, q_tile=qt, k_tile=kt)
+                     .sum().item() for x in (seg, None))
+        if counts[label] != rule:
+            raise AssertionError(f"flash_bwd: {label} pass computed/causal tile pairs "
+                                 f"{counts[label]}, the plain skip rule gives {rule}")
+        share[label] = counts[label][0] / counts[label][1]
+    return share
+
+
 def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
     """One shape set of the backward kernel: dQ, dK, dV against the plain
     version from the same (q, k, v, dO, O, LSE), timings and bound. O and the
@@ -359,8 +385,11 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
         return flash_attention_bwd_reference(q, k, v, do, out, lse, seg, seg, causal=causal,
                                              sm_scale=scale)
 
-    got, want = kernel(), plain()
+    got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
+    for label, g_, a_ in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(g_, a_):
+            raise AssertionError(f"[kernels] {name}: two calls gave different {label} bits")
     errs = {}
     for label, g_, w_ in zip(("dq", "dk", "dv"), got, want):
         err, tol, rel_rms = grad_errors(g_, w_)
@@ -407,18 +436,22 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
     nbytes += 2 * 4 * seg.numel() if seg is not None else 0
     bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+    tile_share = flash_bwd_tile_share(q, k, v, do, out, lse, seg, causal, scale)
     worst = max(errs.values(), key=lambda e: e[0] / e[1])
     log(f"[kernels] flash_bwd {name}: "
         + "  ".join(f"{lb} err {e[0]:.3e} (limit {e[1]:.3e}) rel_rms {e[2]:.3e}"
                     for lb, e in errs.items())
-        + f"  kernel {ms:.4f} ms (call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+        + f"  equal bits  tiles computed by the kernel (of causal, as the plain rule)"
+        f" dK/dV {tile_share['dkv']:.4f}"
+        f" dQ {tile_share['dq']:.4f}"
+        f"  kernel {ms:.4f} ms (call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
         f"  sdpa-bwd {library_ms:.4f} ms"
         f"  bound {bound_ms * 1e3:.2f} us ({bound_by}, {flops / 1e9:.2f} GFLOP)"
         f"  {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
     return {"shape": name, "max_abs_err": worst[0], "max_abs_limit": worst[1],
             "rel_rms_err": max(e[2] for e in errs.values()), "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_share": bound_ms / ms}
+            "bound_by": bound_by, "bound_share": bound_ms / ms, "tile_share": tile_share}
 
 
 def _adam_case(name, shape, gen, steps=3):
@@ -1449,6 +1482,10 @@ def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8) -> 
     for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:top]:
         log(f"[profile] {label}:   {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    for e in kernels:  # the port's own kernels, wherever they rank
+        if any(n in e.key for n in ("flash_", "adam8bit", "w4a16")):
+            log(f"[profile] {label}: own {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+                f"{e.key[:90]}")
     if trace:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{label}.json"))

@@ -1,10 +1,10 @@
 // Shared device helpers for the port's Hopper (sm_90a) kernels: shared
 // memory addresses, mbarriers, TMA tensor loads, wgmma (descriptors,
-// fences, the m64nNk16 bf16 instructions the flash forward uses), register
+// fences, the m64nNk16 bf16 instructions the flash kernels use), register
 // reallocation, mma.sync and cluster shared memory. Included by
-// csrc/flash_fwd.cu (K1) and csrc/w4a16.cu (K3); ops/_build.py hashes every
-// header under csrc/ into each library's name, so an edit here rebuilds
-// both.
+// csrc/flash_fwd.cu (K1), csrc/flash_bwd.cu (K2) and csrc/w4a16.cu (K3);
+// ops/_build.py hashes every header under csrc/ into each library's name,
+// so an edit here rebuilds all three.
 //
 // Everything is inline PTX, so nothing here needs a template library or
 // libcuda at link time. The one call outside the runtime API,
@@ -49,8 +49,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
 
 // spin until the phase of parity `parity` has completed (a fresh barrier
 // counts the phase before it, parity 1, as completed). A wait that cannot
-// end, a fault in a pipeline, traps after 2^26 tries (seconds) instead of
-// holding the card.
+// end, a fault in a pipeline, stores to address 0 after 2^26 tries
+// (seconds): the kernel ends with an illegal-address error instead of
+// holding the card. Not `trap`: a trap in the consumers' code makes ptxas
+// ignore the register counts `setmaxnreg` gives them (it then allocates
+// every role at the launch bound's 168, spills and serialises wgmma).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done, tries = 0;
   do {
@@ -59,7 +62,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && ++tries == (1u << 26)) __trap();
+    if (!done && ++tries == (1u << 26))
+      asm volatile("st.global.u32 [%0], %1;\n" :: "l"(0ull), "r"(0u) : "memory");
   } while (!done);
 }
 
@@ -168,6 +172,24 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, u
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -292,6 +292,72 @@ def flash_attention_bwd_reference(
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
+BWD_TILE = 64  # rows of the backward kernel's streamed tiles and range chunks
+
+
+def bwd_tiles(d: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(query rows, key rows) of one tile pair of the backward kernel's dK/dV
+    pass and of its dQ pass at head dim ``d``. Mirrors ``launch<D>`` in
+    ``csrc/flash_bwd.cu``: a block owns 128 rows and streams 64-row tiles,
+    128-row query tiles in the dK/dV pass at head dim 64."""
+    return (BWD_TILE if d == 128 else 2 * BWD_TILE, 2 * BWD_TILE), (2 * BWD_TILE, BWD_TILE)
+
+
+def segment_tile_ranges(seg: torch.Tensor, tile: int = BWD_TILE):
+    """Per ``tile``-row chunk of ``seg`` ``[B, S]``: ``(lo, hi, has_zero)``,
+    each ``[B, ceil(S / tile)]``. ``lo``/``hi`` are the least and largest
+    nonzero id (``lo > hi`` when the chunk has none); ``has_zero`` says
+    whether it holds a 0 (padding). Rows past ``S`` are in no chunk. The
+    plain version of the range kernel of ``csrc/flash_bwd.cu``."""
+    b, s = seg.shape
+    n = -(-s // tile)
+    pad = n * tile - s
+    seg = seg.to(torch.int64)
+    big = torch.iinfo(torch.int64).max
+    nz = torch.nn.functional.pad(seg != 0, (0, pad)).reshape(b, n, tile)
+    ids = torch.nn.functional.pad(seg, (0, pad)).reshape(b, n, tile)
+    valid = torch.nn.functional.pad(torch.ones_like(seg, dtype=torch.bool), (0, pad))
+    lo = torch.where(nz, ids, big).amin(-1)
+    hi = torch.where(nz, ids, -big).amax(-1)
+    has_zero = (~nz & valid.reshape(b, n, tile)).any(-1)
+    return lo, hi, has_zero
+
+
+def flash_bwd_tile_pairs(
+    qseg: torch.Tensor | None,
+    kseg: torch.Tensor | None,
+    sq: int,
+    skv: int,
+    *,
+    causal: bool,
+    q_tile: int = BWD_TILE,
+    k_tile: int = BWD_TILE,
+) -> torch.Tensor:
+    """The backward kernel's skip rule in plain PyTorch: a bool
+    ``[B, ceil(sq / q_tile), ceil(skv / k_tile)]`` (``B`` 1 without
+    segments) that is True for each (query tile, key tile) pair the kernel
+    computes, at the tiles of one pass (:func:`bwd_tiles`). A pair is
+    skipped when causal puts every key after every query, or, with
+    segment ids, when the query tile has no nonzero id, the key tile has
+    none, or their ranges of nonzero ids are disjoint: no kept pair of
+    :func:`_mask` lies in a skipped tile. The wrapper does not call it; the
+    tests do, and ``chip_smoke.py`` holds the kernel's own count
+    (:func:`flash_bwd_tiles_computed`) to it."""
+    nq, nk = -(-sq // q_tile), -(-skv // k_tile)
+    keep = torch.ones((1, nq, nk), dtype=torch.bool)
+    if causal:
+        iq = torch.arange(nq)[:, None]
+        jk = torch.arange(nk)[None, :]
+        keep = keep & (jk * k_tile <= iq * q_tile + q_tile - 1)[None]
+    if qseg is not None:
+        qlo, qhi, _ = (x.cpu() for x in segment_tile_ranges(qseg, q_tile))
+        klo, khi, _ = (x.cpu() for x in segment_tile_ranges(kseg, k_tile))
+        meet = ((qlo <= qhi)[:, :, None] & (klo <= khi)[:, None, :]
+                & (qlo[:, :, None] <= khi[:, None, :]) & (klo[:, None, :] <= qhi[:, :, None]))
+        keep = keep & meet
+    return keep
+
+
 def flash_attention_bwd_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -306,11 +372,42 @@ def flash_attention_bwd_cuda(
     sm_scale: float,
 ):
     """Launch the Hopper backward (``csrc/flash_bwd.cu``) on the current
-    stream: one C call that runs the delta kernel, the dK/dV pass and the dQ
-    pass. Same contract as :func:`flash_attention_cuda` (bf16 BSHD through
+    stream: one C call that runs the delta kernel, with segment ids the
+    kernel that writes each 64-row chunk's id range, and one launch of the
+    dK/dV and dQ passes (tile pairs skipped as :func:`flash_bwd_tile_pairs`
+    says). Same contract as :func:`flash_attention_cuda` (bf16 BSHD through
     strides, head_dim 64 or 128, causal needs ``sq == skv``); ``lse`` is the
     forward's float32 ``[B, Hq, Sq]``. Raises on anything else.
-    ``flash_attention_bwd_cuda.launches`` counts calls."""
+    ``flash_attention_bwd_cuda.launches`` counts launches, this function's
+    and :func:`flash_bwd_tiles_computed`'s."""
+    return _flash_bwd_launch(q, k, v, do, out, lse, qseg, kseg, causal, sm_scale, None)
+
+
+def flash_bwd_tiles_computed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    qseg: torch.Tensor | None,
+    kseg: torch.Tensor | None,
+    *,
+    causal: bool,
+    sm_scale: float,
+) -> dict[str, tuple[int, int]]:
+    """Launch the backward as :func:`flash_attention_bwd_cuda` does (one
+    more count) and return the kernel's own count of tile pairs, per pass
+    (``"dkv"``, ``"dq"``): ``(computed, causal)``, the pairs its blocks
+    staged and the pairs causality alone leaves, at :func:`bwd_tiles`' sizes
+    and summed over heads and batch."""
+    tiles = torch.zeros(4, dtype=torch.int32, device=q.device)
+    _flash_bwd_launch(q, k, v, do, out, lse, qseg, kseg, causal, sm_scale, tiles)
+    c = tiles.tolist()
+    return {"dkv": (c[0], c[1]), "dq": (c[2], c[3])}
+
+
+def _flash_bwd_launch(q, k, v, do, out, lse, qseg, kseg, causal, sm_scale, tiles):
     do = do.to(q.dtype)
     if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:-1]):
         do = do.contiguous()
@@ -343,7 +440,7 @@ def flash_attention_bwd_cuda(
     if not getattr(lib, "_dl_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dl_flash_bwd_bf16.argtypes = (
-            [P] * 12 + [I] * 6 + [L] * 26 + [ctypes.c_float, I, P])
+            [P] * 14 + [I] * 6 + [L] * 26 + [ctypes.c_float, I, P])
         lib.dl_flash_bwd_bf16.restype = I
         lib.dl_cuda_error_string.argtypes = [I]
         lib.dl_cuda_error_string.restype = ctypes.c_char_p
@@ -353,15 +450,21 @@ def flash_attention_bwd_cuda(
     dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    ranges = None
     if qseg is not None:
         qseg = qseg.to(device=q.device, dtype=torch.int32).contiguous()
         kseg = kseg.to(device=q.device, dtype=torch.int32).contiguous()
+        # per 64-row chunk of queries and of keys: (lo, hi, has a 0, -)
+        chunks = -(-sq // BWD_TILE) + -(-skv // BWD_TILE)
+        ranges = torch.empty(4 * b * chunks, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dl_flash_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         qseg.data_ptr() if qseg is not None else None,
         kseg.data_ptr() if kseg is not None else None,
+        ranges.data_ptr() if ranges is not None else None,
+        tiles.data_ptr() if tiles is not None else None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, skv, hq, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],

@@ -24,8 +24,18 @@ def csrc_copy(tmp_path, monkeypatch):
 def test_sources_include_the_shared_header():
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
     assert headers == ["sm90.cuh"]
-    for name in ("flash_fwd.cu", "w4a16.cu"):
+    for name in ("flash_fwd.cu", "flash_bwd.cu", "w4a16.cu"):
         assert '#include "sm90.cuh"' in (_build.CSRC / name).read_text()
+
+
+def test_flash_backward_runs_on_wgmma_and_tma():
+    """K2's products are wgmma on TMA-staged tiles: no mma.sync, no cp.async ring."""
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    for used in ("issue_ss<D, N>", "issue_rs<D, N>", "tma_load_4d", "mbar_wait",
+                 "setmaxnreg_inc", "setmaxnreg_dec"):
+        assert used in src, used
+    for gone in ("mma.sync", "mma_bf16_16816", "cp.async", "ldmatrix"):
+        assert gone not in src, gone
 
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "w4a16.cu", "flash_bwd.cu", "adam8bit.cu"])

@@ -1,7 +1,8 @@
-"""The Hopper kernels K1 (flash-attention forward, ``csrc/flash_fwd.cu``)
-and K3 (w4a16 int4 matmul, ``csrc/w4a16.cu``) at their edge cases, on the
-card, against their plain versions with ``chip_smoke.py``'s limits, and
-twice on the same inputs for the same bits. They skip without a card.
+"""The Hopper kernels K1 (flash-attention forward, ``csrc/flash_fwd.cu``),
+K2 (flash-attention backward, ``csrc/flash_bwd.cu``) and K3 (w4a16 int4
+matmul, ``csrc/w4a16.cu``) at their edge cases, on the card, against their
+plain versions with ``chip_smoke.py``'s limits, and twice on the same inputs
+for the same bits. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch and a card:
@@ -89,6 +90,67 @@ def test_flash_forward_kernel_edge_cases_on_card(case):
         ref = mean_v[:, None].expand(b, s, hq, d)[~rows]
         err, tol, _ = chip_smoke.out_errors(pad, ref)
         assert err <= tol, (err, tol)
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+# ids 0 in rows 200-399: key and query chunks 4 and 5 (rows 256-383) hold
+# only padding
+_GAP = [[1] * 200 + [0] * 200 + [2] * 600]
+_INTERLEAVED = [[1, 2] * 512]  # every chunk spans ids 1-2: the range skip drops nothing
+_PACKED3 = [[1] * 400 + [2] * 500 + [3] * 124]
+
+_BWD_CASES = {
+    # name: (b, s, hq, hkv, d, causal, segments, fused projection views)
+    "ragged-s1000-d64": (2, 1000, 3, 3, 64, False, None, False),
+    "ragged-s1000-causal-d128": (1, 1000, 2, 2, 128, True, None, False),
+    "causal-diagonal-d64": (1, 640, 2, 2, 64, True, None, False),
+    "padding-tail-causal-d128": (1, 1000, 2, 2, 128, True, _PAD, False),
+    "padding-tail-d64": (1, 1000, 2, 2, 64, False, _PAD, False),
+    "all-padding-tiles-d128": (1, 1000, 2, 2, 128, False, _GAP, False),
+    "all-padding-tiles-causal-d64": (1, 1000, 2, 2, 64, True, _GAP, False),
+    "interleaved-ids-d64": (1, 1024, 2, 2, 64, False, _INTERLEAVED, False),
+    "interleaved-ids-causal-d128": (1, 1024, 2, 2, 128, True, _INTERLEAVED, False),
+    "gqa-32-8-causal-segments-d128": (1, 1024, 32, 8, 128, True, _PACKED3, False),
+    "fused-projection-views-d64": (2, 768, 4, 4, 64, False, None, True),
+    "fused-projection-views-gqa-d128": (1, 1024, 4, 2, 128, True, None, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_flash_backward_kernel_edge_cases_on_card(case):
+    _card()
+    b, s, hq, hkv, d, causal, segments, fused = _BWD_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = _qkv(b, s, hq, hkv, d, fused, gen)
+    do = torch.randn((b, s, hq, d), generator=gen, device="cuda").bfloat16()
+    seg = None
+    if segments is not None:
+        seg = torch.tensor(segments * b, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(d)
+    out, lse = patt.flash_attention_cuda(q, k, v, seg, seg, causal=causal, sm_scale=scale,
+                                         return_lse=True)
+    kw = dict(causal=causal, sm_scale=scale)
+    before = patt.flash_attention_bwd_cuda.launches
+    got = patt.flash_attention_bwd_cuda(q, k, v, do, out, lse, seg, seg, **kw)
+    again = patt.flash_attention_bwd_cuda(q, k, v, do, out, lse, seg, seg, **kw)
+    want = patt.flash_attention_bwd_reference(q, k, v, do, out, lse, seg, seg, **kw)
+    torch.cuda.synchronize()
+    assert patt.flash_attention_bwd_cuda.launches == before + 2
+    # the kernel's own tile count agrees with the plain skip rule
+    share = chip_smoke.flash_bwd_tile_share(q, k, v, do, out, lse, seg, causal, scale)
+    assert all(0.0 < x <= 1.0 for x in share.values()), share
+    for label, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g_, a_), f"{label}: two calls gave different bits"
+        assert torch.isfinite(g_.float()).all(), label
+        err, tol, rel_rms = chip_smoke.grad_errors(g_, w_)
+        assert err <= tol and rel_rms <= chip_smoke.GRAD_REL_RMS, (label, err, tol, rel_rms)
+        if seg is not None and (seg == 0).any():
+            # padding rows: no gradient to their queries, nothing from their keys
+            assert g_[seg == 0].float().abs().max().item() == 0.0, label
 
 
 # ---------------------------------------------------------------------------
