@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --no-main  # environment, build and kernel checks only
-    python3 chip_smoke.py --profile chiprun_out/profile  # + a UNet step and a decode step traced
+    python3 chip_smoke.py --profile chiprun_out/profile  # + traced UNet and decode steps
 
 Phases, each on lines of its own; any failure exits non-zero:
 
@@ -11,18 +11,33 @@ Phases, each on lines of its own; any failure exits non-zero:
 3. kernels: each hand-written kernel (flash-attention forward and backward,
    fused 8-bit AdamW, w4a16 int4 matmul) against its plain PyTorch version
    on the card at the shapes the main paths give it (the flash kernels and
-   the int4 matmul also twice, for equal bits), timed beside the plain version,
-   PyTorch's own library call where there is one, and the card's bound;
-4. small reference: a tiny random DreamLLM document, a tiny train step and
-   a tiny int4 decoder's ``generate_text`` (batch 1 and 8) and engine (4
+   the int4 matmul also twice, for equal bits; the 8-bit AdamW also on a
+   conv kernel, which its caller blocks in HWIO order), timed beside the
+   plain version, PyTorch's own library call where there is one, and the
+   card's bound;
+4. small reference: a tiny random DreamLLM document, an image-out chat
+   turn, a text-to-image at DeepCache interval 2 (the tiny UNet's
+   ``conv_out`` redrawn at its fan-in scale, so that the images depend on
+   the UNet), a tiny train step and a
+   tiny int4 decoder's ``generate_text`` (batch 1 and 8) and engine (4
    slots, 6 requests) on the card agree with the same on the CPU;
 5. main path, serving: a random full-width DreamLLM-7B + SD-2.1 (bf16,
    seeded, built on the card) writes one interleaved document with two
-   512x512 images; the flash kernel's launch count over that run is checked;
+   512x512 images; then, on the same parameters with the UNet's
+   ``conv_out`` redrawn at its fan-in scale, text-to-image as
+   ``projects/dreamllm/inference.py`` makes it (``encode_prompt_embeds`` on
+   the prompt and the negative prompt, timed alone, then ``sd_head_pipeline``
+   with DDIM, 50 steps, guidance 3.5, 512x512, run twice at DeepCache
+   interval 1 and twice at 2, the second run of each timed), the document
+   again with its images at DeepCache interval 2, and one multimodal
+   ``chat`` turn (one 224x224 image, 64 greedy tokens). The flash kernel's
+   launches over each of these runs are checked against the counts derived
+   from the UNet's configuration (10 a full UNet forward, 5 a shallow one);
 6. main path, training: the same parameters take three joint train steps
    (LM + diffusion loss, CLIP/UNet/VAE frozen, 8-bit AdamW with the fused
    kernel, full remat) through ``Trainer.train`` at batch 2 x 2048; losses,
-   updates, frozen parameters and the three kernels' launch counts are
+   updates, frozen parameters, the three kernels' launch counts and the one
+   final checkpoint the trainer asks for (recorded, not written) are
    checked, and one full optimizer update is timed fused and unfused;
 7. main path, quantized serving: DreamLLM-7B's decoder (bf16, seeded, built
    on the card) quantized to int4 group-128 layer by layer; ``generate_text``
@@ -458,10 +473,14 @@ def _adam_case(name, shape, gen, steps=3):
     """The fused 8-bit AdamW kernel on one bf16 leaf over ``steps`` successive
     steps against its plain version. Each step both start from the kernel's
     previous state, so a one-code difference cannot compound into the next
-    comparison."""
+    comparison. The kernel is called as the optimizer calls it
+    (``adam8bit_update_fused``): a 4-D leaf is an OIHW conv kernel, stored
+    channels-last as the port stores them, and goes to the kernel in the
+    HWIO order in which the plain version cuts its 256-blocks."""
     from dreamllm_tpu_torch.train.optim8bit import (
-        _Moment,
+        _logical,
         adam8bit_update_cuda,
+        adam8bit_update_fused,
         adam8bit_update_reference,
         quant_moment_m,
         quant_moment_v,
@@ -470,6 +489,8 @@ def _adam_case(name, shape, gen, steps=3):
     dev = "cuda"
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
     p = (torch.randn(shape, generator=gen, device=dev) * 0.02).bfloat16()
+    if len(shape) == 4:
+        p = p.contiguous(memory_format=torch.channels_last)
     zeros = torch.zeros(shape, device=dev)
     mq, vq = quant_moment_m(zeros), quant_moment_v(zeros)
     n = p.numel()
@@ -480,7 +501,7 @@ def _adam_case(name, shape, gen, steps=3):
         count = step + 1
         scalars = torch.tensor([4e-5, 1 - 0.9 ** count, 1 - 0.999 ** count], device=dev)
         want_u, want_m, want_v = adam8bit_update_reference(g, p, mq, vq, scalars, **hyper)
-        got_u = adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper)  # mq, vq in place
+        got_u = adam8bit_update_fused(g.clone(), p, mq, vq, scalars, **hyper)  # mq, vq in place
         torch.cuda.synchronize()
         ulp = bf16_ulp(want_u.float().abs().max().item())
         worst_upd = max(worst_upd, (got_u.float() - want_u.float()).abs().max().item() / ulp)
@@ -501,13 +522,15 @@ def _adam_case(name, shape, gen, steps=3):
     # a skipped step: zero update, state untouched
     before = [t.clone() for t in (*mq, *vq)]
     skip = torch.ones((), dtype=torch.int32, device=dev)
-    got_u = adam8bit_update_cuda(g, p, mq, vq, scalars, skip=skip, **hyper)
+    got_u = adam8bit_update_fused(g.clone(), p, mq, vq, scalars, skip=skip, **hyper)
     if got_u.float().abs().max().item() != 0.0 or any(
             not torch.equal(a, b_) for a, b_ in zip(before, (*mq, *vq))):
         raise AssertionError(f"[kernels] adam8bit {name}: a skipped step moved something")
 
-    ms = device_ms(lambda: adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper), 20)
-    call_ms = cuda_ms(lambda: adam8bit_update_cuda(g, p, mq, vq, scalars, **hyper), 20)
+    # the kernel alone, on the leaf already in its blocks' order
+    gl, pl = _logical(g).contiguous(), _logical(p).contiguous()
+    ms = device_ms(lambda: adam8bit_update_cuda(gl, pl, mq, vq, scalars, **hyper), 20)
+    call_ms = cuda_ms(lambda: adam8bit_update_cuda(gl, pl, mq, vq, scalars, **hyper), 20)
     plain_ms = device_ms(lambda: adam8bit_update_reference(g, p, mq, vq, scalars, **hyper), 5)
     # g, p read and the update written at 2 B; two codes read and written;
     # two float32 scales per 256 elements read and written
@@ -659,6 +682,8 @@ def phase_kernels() -> dict:
         ("w_gate [4096, 11008]", (4096, 11008)),
         ("wq [4096, 4096]", (4096, 4096)),
         ("norm [4096]", (4096,)),
+        # an SD-2.1 UNet conv kernel (OIHW): the caller blocks it in HWIO order
+        ("conv [320, 320, 3, 3]", (320, 320, 3, 3)),
     )]
     w4 = [_w4_case(label, b, torch.bfloat16, gen) for label, b in (
         ("wqkv", 1), ("wqkv", 8), ("wo", 1), ("wo", 3), ("wo", 8), ("w_gate_up", 1),
@@ -694,7 +719,9 @@ def _tiny_configs():
 def phase_small_reference() -> None:
     """A tiny float32 document on the card against the same on the CPU:
     the same greedy text, images within 1e-3 (float32 products on both,
-    summed in other orders through 2 x 2 UNet steps and the VAE)."""
+    summed in other orders through 2 x 2 UNet steps and the VAE). Then, the
+    same way, an image-out chat turn (same greedy text, its image within
+    1e-3) and a tiny text-to-image at DeepCache interval 2 (within 1e-3)."""
     from dreamllm_tpu_torch.generation.interleaved import InterleavedConfig, generate_interleaved
     from dreamllm_tpu_torch.generation.sampler import SamplingConfig
     from dreamllm_tpu_torch.models.dreamllm import init_dreamllm_params
@@ -704,6 +731,7 @@ def phase_small_reference() -> None:
     gen = torch.Generator().manual_seed(3)
     params = init_dreamllm_params(cfg, generator=gen, device="cpu")
     head = init_sd_head_params(head_cfg, generator=gen, device="cpu")
+    _live_conv_out(head, head_cfg, gen)
     ids = torch.randint(10, 31000, (1, 8), generator=gen)
     noise = [torch.randn((1, 8, 8, 4), generator=gen) for _ in range(2)]
     icfg = InterleavedConfig(max_new_tokens=18, max_images=2, num_inference_steps=2,
@@ -740,15 +768,82 @@ def phase_small_reference() -> None:
     if not img_err <= 1e-3:
         raise AssertionError(f"[small] image max-abs {img_err} > 1e-3")
     log(f"[small] card == CPU: segments {kinds}, image max-abs {img_err:.3e}")
+    _small_chat_and_t2i(cfg, head_cfg, params, head, gen)
+
+
+def _small_chat_and_t2i(cfg, head_cfg, params, head, gen) -> None:
+    """Card against CPU on the tiny model: one image-out chat turn
+    (``generate_interleaved`` under ``chat``, both sides' image made from the
+    same start latents) and one text-to-image at DeepCache interval 2."""
+    import dreamllm_tpu_torch.generation.interleaved as interleaved_mod
+    from dreamllm_tpu_torch.data.dataset_types import Message
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.generation.chat import chat
+    from dreamllm_tpu_torch.generation.interleaved import InterleavedConfig
+    from dreamllm_tpu_torch.generation.sampler import SamplingConfig
+    from dreamllm_tpu_torch.models.dreamllm import encode_prompt_embeds
+    from dreamllm_tpu_torch.models.sd.head import sd_head_pipeline
+
+    tok = ToyTokenizer()
+    image = torch.rand((32, 32, 3), generator=gen)
+    chat_noise = torch.randn((1, 8, 8, 4), generator=gen)
+    t2i_noise = torch.randn((1, 8, 8, 4), generator=gen)
+    msgs = [Message("user", "<image>\nWhat is in this picture?")]
+    icfg = InterleavedConfig(max_new_tokens=12, max_images=1, num_inference_steps=2,
+                             image_height=16, image_width=16, sampler="dpm",
+                             force_image_interval=5)
+    sampling = SamplingConfig(greedy=True, eos_token_id=-1, max_new_tokens=12)
+    real_pipeline = interleaved_mod.sd_head_pipeline
+
+    def run(device):
+        p, h = _to_device(params, device), _to_device(head, device)
+        interleaved_mod.sd_head_pipeline = (
+            lambda *a, **kw: real_pipeline(*a, latents=chat_noise, **kw))
+        try:
+            turn = chat(p, cfg, tok, msgs, [image], sampling=sampling, head_params=h,
+                        head_cfg=head_cfg, interleaved=icfg, device=device)
+        finally:
+            interleaved_mod.sd_head_pipeline = real_pipeline
+        with torch.no_grad():
+            cond = encode_prompt_embeds(p, cfg, tok, T2I_PROMPT + POSITIVE_SUFFIX)
+            neg = encode_prompt_embeds(p, cfg, tok, NEGATIVE_PROMPT)
+            t2i = sd_head_pipeline(h, head_cfg, cond, neg, None, height=16, width=16,
+                                   num_inference_steps=4, guidance_scale=3.5, sampler="ddim",
+                                   deepcache_interval=2, latents=t2i_noise)
+        return turn, t2i
+
+    (ref_turn, ref_t2i), (got_turn, got_t2i) = run("cpu"), run("cuda")
+    if got_turn["text"] != ref_turn["text"] or len(got_turn["images"]) != 1:
+        raise AssertionError(f"[small] chat turn differs: {got_turn['text']!r} with "
+                             f"{len(got_turn['images'])} images vs {ref_turn['text']!r}")
+    chat_err = (got_turn["images"][0].cpu() - ref_turn["images"][0]).abs().max().item()
+    t2i_err = (got_t2i.cpu() - ref_t2i).abs().max().item()
+    if not (chat_err <= 1e-3 and t2i_err <= 1e-3):
+        raise AssertionError(f"[small] chat image max-abs {chat_err}, t2i max-abs {t2i_err}; "
+                             "limit 1e-3")
+    log(f"[small] card == CPU: image-out chat turn ({len(got_turn['text'].split())} text "
+        f"tokens, image max-abs {chat_err:.3e}); t2i at DeepCache interval 2 "
+        f"(max-abs {t2i_err:.3e})")
+
+
+def _live_conv_out(head, head_cfg, gen) -> None:
+    """Redraw the UNet's ``conv_out`` at its fan-in scale, in place, from
+    ``gen``. Its initial std of 1e-5 leaves the UNet's output next to nothing
+    on random weights: the images would then follow their start latents, and
+    neither a card-vs-CPU limit nor DeepCache's drift would see the UNet."""
+    from dreamllm_tpu_torch.models.sd.blocks import init_conv
+
+    conv = head["unet"]["conv_out"]
+    cout, cin, kh, kw = conv["w"].shape  # OIHW
+    with torch.no_grad():
+        new = init_conv(kh, kw, cin, cout, conv["w"].dtype, conv["w"].device, gen)
+        conv["w"].copy_(new["w"])
 
 
 def phase_main(profile_dir: str | None = None) -> dict:
     from dreamllm_tpu_torch.configs import dreamllm_7b
-    from dreamllm_tpu_torch.generation.interleaved import InterleavedConfig, generate_interleaved
-    from dreamllm_tpu_torch.generation.sampler import SamplingConfig
     from dreamllm_tpu_torch.models.dreamllm import init_dreamllm_params
     from dreamllm_tpu_torch.models.sd.head import init_sd_head_params, sd_head_pipeline
-    from dreamllm_tpu_torch.ops.attention import flash_attention
 
     cfg, head_cfg = dreamllm_7b(torch.bfloat16)
     t0 = time.perf_counter()
@@ -760,8 +855,27 @@ def phase_main(profile_dir: str | None = None) -> dict:
     n_params = sum(t.numel() for t in _leaves(params)) + sum(t.numel() for t in _leaves(head))
     log(f"[main] DreamLLM-7B ({cfg.llm.num_hidden_layers} decoder layers) + SD-2.1, bf16: "
         f"{n_params / 1e9:.3f} B parameters built in {time.perf_counter() - t0:.2f} s")
+    model = (params, cfg, head, head_cfg)
+    launches = _document(model, sd_head_pipeline, 1, gen, "main")
+    if profile_dir:
+        _profile_main(params, cfg, head, head_cfg, profile_dir)
+    return launches, model
 
-    steps, n_images, seg = 20, 2, 32
+
+DOC_STEPS, DOC_IMAGES, DOC_SEGMENT = 20, 2, 32  # the document: 2 images of 20 DPM steps
+
+
+def _document(model, pipeline, deepcache_interval: int, gen, label: str) -> dict:
+    """One interleaved document with two 512x512 images (``pipeline`` makes
+    them, at ``deepcache_interval``), timed; the flash kernel's launches over
+    the run must equal the UNet's flash sites of every full and shallow
+    step."""
+    from dreamllm_tpu_torch.generation.interleaved import InterleavedConfig, generate_interleaved
+    from dreamllm_tpu_torch.generation.sampler import SamplingConfig
+    from dreamllm_tpu_torch.ops.attention import flash_attention
+
+    params, cfg, head, head_cfg = model
+    steps, n_images, seg = DOC_STEPS, DOC_IMAGES, DOC_SEGMENT
     icfg = InterleavedConfig(
         max_new_tokens=seg * (n_images + 1), max_images=n_images,
         num_inference_steps=steps, guidance_scale=3.5, sampler="dpm",
@@ -775,7 +889,7 @@ def phase_main(profile_dir: str | None = None) -> dict:
     def timed_pipeline(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        img = sd_head_pipeline(*a, **kw)
+        img = pipeline(*a, deepcache_interval=deepcache_interval, **kw)
         torch.cuda.synchronize()
         image_s[0] += time.perf_counter() - t
         return img
@@ -793,30 +907,152 @@ def phase_main(profile_dir: str | None = None) -> dict:
     texts = [s[1] for s in doc["segments"] if s[0] == "text"]
     imgs = doc["images"]
     if len(imgs) != n_images or len(texts) != n_images + 1:
-        raise AssertionError(f"[main] {len(imgs)} images, {len(texts)} text segments")
+        raise AssertionError(f"[{label}] {len(imgs)} images, {len(texts)} text segments")
     for img in imgs:
-        if tuple(img.shape) != (512, 512, 3) or not bool(torch.isfinite(img).all()):
-            raise AssertionError(f"[main] image shape {tuple(img.shape)} or non-finite values")
-        if float(img.min()) < 0.0 or float(img.max()) > 1.0:
-            raise AssertionError("[main] image values outside [0, 1]")
-    # 10 flash launches per UNet forward (2 down + 3 up blocks at each of the
-    # 64x64 and 32x32 levels), one CFG-batched forward per step
-    want = 10 * steps * n_images
+        _check_image(img, label)
+    want = n_images * pipeline_flash_launches(head_cfg.unet, steps, deepcache_interval)
     if launches != want:
-        raise AssertionError(f"[main] flash kernel launched {launches} times, want {want}")
+        raise AssertionError(f"[{label}] flash kernel launched {launches} times, want {want}")
     decoded = icfg.max_new_tokens
     other_s = doc_s - image_s[0]
     peak = torch.cuda.max_memory_allocated()
-    log(f"[main] document: {doc_s:.3f} s; images {image_s[0]:.3f} s "
-        f"({image_s[0] / n_images:.3f} s each, {steps} dpm steps, CFG batch 2); "
-        f"text+spans {other_s:.3f} s for {decoded} decoded tokens "
+    log(f"[{label}] document (DeepCache interval {deepcache_interval}): {doc_s:.3f} s; images "
+        f"{image_s[0]:.3f} s ({image_s[0] / n_images:.3f} s each, {steps} dpm steps, CFG batch "
+        f"2); text+spans {other_s:.3f} s for {decoded} decoded tokens "
         f"({decoded / other_s:.2f} tokens/s, prefill, dream and span appends included)")
-    log(f"[main] text segments {[len(x) for x in texts]}; flash launches {launches}; "
+    log(f"[{label}] text segments {[len(x) for x in texts]}; flash launches {launches}; "
         f"peak memory {peak / 2**30:.2f} GiB")
-    if profile_dir:
-        _profile_main(params, cfg, head, head_cfg, profile_dir)
-    del doc, imgs, texts
-    return {"flash_fwd": launches}, (params, cfg, head, head_cfg)
+    return {"flash_fwd": launches}
+
+
+def _check_image(img, label: str, shape=(512, 512, 3)) -> None:
+    if tuple(img.shape) != shape or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"[{label}] image shape {tuple(img.shape)} or non-finite values")
+    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        raise AssertionError(f"[{label}] image values outside [0, 1]")
+
+
+# projects/dreamllm/inference.py, mode "t2i": the prompt's suffix and the
+# negative prompt that conditions the unconditional side
+POSITIVE_SUFFIX = ", best quality, extremely detailed"
+NEGATIVE_PROMPT = (
+    "longbody, lowres, bad anatomy, bad hands, missing fingers, extra digit, "
+    "fewer digits, cropped, worst quality, low quality"
+)
+T2I_PROMPT = "a photo of a dog"  # inference.py's default prompt
+T2I_STEPS = 50                   # inference.py's defaults: DDIM, 50 steps, guidance 3.5
+
+
+def phase_t2i(model) -> tuple[dict, dict]:
+    """Text-to-image as ``projects/dreamllm/inference.py`` makes it, on the
+    7B parameters with the UNet's ``conv_out`` redrawn at its fan-in scale
+    (:func:`_live_conv_out`, kept for the later phases): the prompt with its
+    suffix and the negative prompt through ``encode_prompt_embeds``, timed
+    alone, then ``sd_head_pipeline`` (DDIM, 50 steps, guidance 3.5, 512x512)
+    at DeepCache interval 1 and 2 from the same start latents, twice each;
+    the second run of each interval is the one timed. Each run is one path:
+    the flash count is set to 0 before it and read after it (the prompts'
+    forwards take plain attention and launch nothing)."""
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.models.dreamllm import encode_prompt_embeds
+    from dreamllm_tpu_torch.models.sd.head import sd_head_pipeline
+    from dreamllm_tpu_torch.ops.attention import flash_attention
+
+    params, cfg, head, head_cfg = model
+    tok = ToyTokenizer()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    _live_conv_out(head, head_cfg, gen)
+    latents = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
+
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t = time.perf_counter()
+    with torch.no_grad():
+        cond = encode_prompt_embeds(params, cfg, tok, T2I_PROMPT + POSITIVE_SUFFIX)
+        neg = encode_prompt_embeds(params, cfg, tok, NEGATIVE_PROMPT)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t
+    if cond.shape != (1, cfg.n_dream_queries, cfg.llm.hidden_size) or cond.shape != neg.shape:
+        raise AssertionError(f"[t2i] prompt states of shapes {tuple(cond.shape)}, "
+                             f"{tuple(neg.shape)}")
+    if flash_attention.launches != 0:
+        raise AssertionError(f"[t2i] the prompts' forwards launched the flash kernel "
+                             f"{flash_attention.launches} times, want 0")
+    log(f"[t2i] the two prompts' forwards (encode_prompt_embeds): {prompt_s:.3f} s")
+
+    images, launches, walls = {}, {}, {}
+    for interval in (1, 2):
+        want = pipeline_flash_launches(head_cfg.unet, T2I_STEPS, interval)
+        walls[interval] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            t = time.perf_counter()
+            with torch.no_grad():
+                img = sd_head_pipeline(head, head_cfg, cond, neg, gen, height=512, width=512,
+                                       num_inference_steps=T2I_STEPS, guidance_scale=3.5,
+                                       sampler="ddim", deepcache_interval=interval,
+                                       latents=latents)
+            torch.cuda.synchronize()
+            walls[interval].append(time.perf_counter() - t)
+            launches[interval] = flash_attention.launches
+            _check_image(img[0], "t2i")
+            if launches[interval] != want:
+                raise AssertionError(f"[t2i] interval {interval}: flash kernel launched "
+                                     f"{launches[interval]} times, want {want}")
+        images[interval] = img
+        first, second = walls[interval]
+        log(f"[t2i] DeepCache interval {interval}: sd_head_pipeline {second:.3f} s for one "
+            f"512x512 image ({T2I_STEPS} ddim steps, CFG batch 2; second of two runs, the "
+            f"first {first:.3f} s); flash launches {launches[interval]} a run")
+    drift = (images[2] - images[1]).abs().mean().item()
+    log(f"[t2i] interval 2 / interval 1 pipeline wall: {walls[2][1] / walls[1][1]:.3f}; "
+        f"interval-2 drift from interval 1: mean |delta| {drift:.4e} on [0, 1] pixels")
+    return {"flash_fwd": launches[1]}, {"flash_fwd": launches[2]}
+
+
+def phase_document_dc2(model) -> dict:
+    """The main path's document again, its images at DeepCache interval 2."""
+    from dreamllm_tpu_torch.models.sd.head import sd_head_pipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return _document(model, sd_head_pipeline, 2, gen, "main-dc2")
+
+
+def phase_chat(model) -> dict:
+    """One multimodal chat turn on the 7B parameters: the vicuna_v1.1
+    template, one random 224x224 image, 64 greedy tokens (EOS off: random
+    weights would stop at random). Every attention of the turn takes the
+    plain path (CLIP's, and the decoder's with its KV cache), so the flash
+    kernel is never launched."""
+    from dreamllm_tpu_torch.data.dataset_types import Message
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.generation.chat import chat
+    from dreamllm_tpu_torch.generation.sampler import SamplingConfig
+    from dreamllm_tpu_torch.ops.attention import flash_attention
+
+    params, cfg, _, _ = model
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((224, 224, 3), generator=gen, device="cuda")
+    msgs = [Message("user", "<image>\nDescribe this image in detail.")]
+    n_new = 64
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t = time.perf_counter()
+    out = chat(params, cfg, ToyTokenizer(), msgs, [image], template="vicuna_v1.1",
+               sampling=SamplingConfig(greedy=True, max_new_tokens=n_new, eos_token_id=-1),
+               generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = flash_attention.launches
+    words = out["text"].split()
+    if len(words) != n_new or out["images"]:
+        raise AssertionError(f"[chat] {len(words)} tokens and {len(out['images'])} images")
+    if launches != 0:
+        raise AssertionError(f"[chat] flash kernel launched {launches} times, want 0")
+    log(f"[chat] one turn (1 image, {n_new} greedy tokens): {secs:.3f} s, "
+        f"{n_new / secs:.2f} tokens/s (CLIP, prompt build and prefill included)")
+    return {"flash_fwd": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1051,6 +1287,33 @@ def unet_flash_sites(unet_cfg, batch: int) -> tuple[int, bool]:
     return sites, first
 
 
+def unet_shallow_flash_sites(unet_cfg, batch: int) -> int:
+    """How many of DeepCache's shallow forward's self-attentions pass the
+    flash rule: those of the first down block and of the last up block, both
+    at the first level (``sample_size`` latents)."""
+    from dreamllm_tpu_torch.ops.attention import flash_eligible
+
+    side = unet_cfg.sample_size
+    d = unet_cfg.block_out_channels[0] // unet_cfg.num_attention_heads[0]
+    shape = (batch, side * side, unet_cfg.num_attention_heads[0], d)
+    per_block = unet_cfg.transformer_layers_per_block[0] * flash_eligible(shape, shape)
+    sites = 0
+    if unet_cfg.down_block_types[0] == "CrossAttnDownBlock2D":
+        sites += unet_cfg.layers_per_block * per_block
+    if unet_cfg.up_block_types[-1] == "CrossAttnUpBlock2D":
+        sites += (unet_cfg.layers_per_block + 1) * per_block
+    return sites
+
+
+def pipeline_flash_launches(unet_cfg, steps: int, deepcache_interval: int) -> int:
+    """Flash launches of one CFG ``sd_head_pipeline`` run: the full UNet's
+    sites on the steps ``i % k == 0`` (every step at interval 1), the shallow
+    forward's on the others."""
+    full = sum(1 for i in range(steps) if deepcache_interval <= 1 or i % deepcache_interval == 0)
+    return (full * unet_flash_sites(unet_cfg, 2)[0]
+            + (steps - full) * unet_shallow_flash_sites(unet_cfg, 2))
+
+
 def phase_train(model: list, profile_dir: str | None = None) -> dict:
     """``model``: ``[params, cfg, head, head_cfg]`` from the serving phase;
     the list is emptied, so that the first step's superseded parameters are
@@ -1142,7 +1405,16 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
             auxes.append(aux)
 
     clock = Clock()
-    trainer = Trainer(
+    saves = []
+
+    class RecordingTrainer(Trainer):
+        """Records the steps it is asked to save instead of writing them: a
+        7B checkpoint with the 8-bit state is about 30 GB."""
+
+        def save(self, step):
+            saves.append(step)
+
+    trainer = RecordingTrainer(
         TrainerConfig(max_steps=steps, log_steps=1, save_steps=0, resume=False,
                       output_dir="runs/chip_smoke_train", tokens_per_batch=batch_rows * seq),
         step_fn, Data(), state, generator=gen, callbacks=[clock], device=dev)
@@ -1167,6 +1439,8 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
             raise AssertionError(f"[train] step {i + 1}: loss/lm/vm/grad_norm/skipped = {row}")
     if int(final.step) != steps or int(adam_state(final.opt_state)["count"]) != steps:
         raise AssertionError("[train] step counter or optimizer count did not reach 3")
+    if saves != [steps]:  # save_steps=0: the final checkpoint only, as in JAX
+        raise AssertionError(f"[train] checkpoints asked for at steps {saves}, want [{steps}]")
     got_flags = torch.stack(flags).cpu()
     n_leaves = got_flags.shape[0] // steps
     for name, col in zip(("finite", "nonzero", "applied where they exceed half an ulp"),
@@ -1492,9 +1766,10 @@ def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8) -> 
 
 
 def _profile_main(params, cfg, head, head_cfg, out_dir: str) -> None:
-    """One CFG UNet step at 512 px and one decode step over a 700-slot cache."""
+    """One CFG UNet step at 512 px, full and DeepCache-shallow, and one
+    decode step over a 700-slot cache."""
     from dreamllm_tpu_torch.models.llama import init_kv_cache, llama_forward, llama_logits
-    from dreamllm_tpu_torch.models.sd.unet import unet_forward
+    from dreamllm_tpu_torch.models.sd.unet import unet_forward, unet_forward_shallow
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     lat = torch.randn((2, 64, 64, 4), generator=gen, device="cuda").bfloat16()
@@ -1512,6 +1787,9 @@ def _profile_main(params, cfg, head, head_cfg, out_dir: str) -> None:
     with torch.no_grad():
         _profile(lambda: unet_forward(head["unet"], head_cfg.unet, lat, ts, ctx), "unet_cfg_step",
                  out_dir)
+        _, deep = unet_forward(head["unet"], head_cfg.unet, lat, ts, ctx, return_deep=True)
+        _profile(lambda: unet_forward_shallow(head["unet"], head_cfg.unet, lat, ts, ctx, deep),
+                 "unet_shallow_cfg_step", out_dir)
         _profile(decode_step, "decode_step", out_dir)
 
 
@@ -1580,8 +1858,8 @@ def main() -> int:
     ap.add_argument("--no-main", action="store_true",
                     help="stop after the kernel checks (no model run, serving or training)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile one UNet step and one decode step (Chrome traces to DIR) "
-                         "and one train step (kernel sums only)")
+                    help="profile one UNet step, full and shallow, and one decode step "
+                         "(Chrome traces to DIR) and one train step (kernel sums only)")
     args = ap.parse_args()
 
     line = phase_env()
@@ -1593,6 +1871,9 @@ def main() -> int:
         phase_small_train()
         phase_small_quant()
         launches["serving"], model = phase_main(args.profile)
+        launches["t2i"], launches["t2i_deepcache2"] = phase_t2i(model)
+        launches["serving_deepcache2"] = phase_document_dc2(model)
+        launches["chat"] = phase_chat(model)
         model = list(model)  # phase_train empties it: nothing here keeps the parameters alive
         launches["training"] = phase_train(model, args.profile)
         del model

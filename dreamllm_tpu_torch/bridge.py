@@ -25,7 +25,9 @@ that nothing consumed all raise.
 ``opt_state_from_jax(state, like)`` does the same for an optimizer state of
 the JAX package's ``make_optimizer`` (optax AdamW or ``Adam8bitState``),
 given as numpy with its namedtuples intact, against the port's state from
-``tx.init(params)``.
+``tx.init(params)``. Stored 8-bit moments cross as they are: the port cuts
+its 256-blocks in the JAX element order, HWIO for a conv kernel
+(``train/optim8bit.py``), so codes and scales mean the same in both.
 """
 
 from __future__ import annotations
@@ -198,10 +200,6 @@ def _moment_leaf(node, like, plike, jpath, index, stack_len, used, dev):
                              f"holds {type(node).__name__}")
         codes, scale = np.asarray(node.codes), np.asarray(node.scale)
         nb = like.codes.shape[0]
-        if plike is not None and plike.ndim == 4:
-            raise NotImplementedError(
-                f"{where}: 8-bit moments of a conv kernel cannot be carried: JAX blocks run "
-                "over the HWIO order, the port's over OIHW")
         if index is not None:
             if plike is None:
                 raise ValueError(f"{where}: pass params= to split a layer-stacked 8-bit moment")

@@ -126,6 +126,14 @@ def clip_vision_forward(
     return x[:, 1:] if drop_cls else x
 
 
+def clip_pooled_output(params: Params, cfg: CLIPVisionConfig,
+                       last_hidden: torch.Tensor) -> torch.Tensor:
+    """The post-layernormed CLS embedding ``[B, hidden]`` (HF
+    ``pooler_output``) of the tower's last hidden state ``[B, S, hidden]``."""
+    return layer_norm(last_hidden[:, 0], params["post_ln_w"], params["post_ln_b"],
+                      cfg.layer_norm_eps)
+
+
 # CLIP image normalization constants (openai/clip-vit-large-patch14 processor)
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)

@@ -1,8 +1,9 @@
 """DreamLLM model core (port of ``dreamllm_tpu/models/dreamllm.py``): the
 LLM with its CLIP image plugin and learned dream queries, static-offset span
-splicing, dream-span extraction, the CFG-unconditional dream states, and the
-joint training forward ``dreamllm_forward`` (LM + diffusion loss) with
-``param_freeze_mask``.
+splicing, dream-span extraction, a text prompt's dream states
+(``encode_prompt_embeds``, the conditioning of text-to-image creation), the
+CFG-unconditional dream states, and the joint training forward
+``dreamllm_forward`` (LM + diffusion loss) with ``param_freeze_mask``.
 
 Span conventions (reference builder): image span ``<im_start> +
 256x<im_patch> + <im_end>``, dream span ``<dream_start> + 64x<dream> +
@@ -199,6 +200,26 @@ def canonical_dream_sequence(cfg: DreamLLMConfig, device=None) -> torch.Tensor:
     st = cfg.special_tokens
     ids = [st.bos, st.dream_start] + [st.dream] * cfg.n_dream_queries + [st.dream_end, st.eos]
     return torch.tensor([ids], dtype=torch.long, device=device)
+
+
+def encode_prompt_embeds(params: Params, cfg: DreamLLMConfig, tokenizer,
+                         prompt: str) -> torch.Tensor:
+    """Text prompt → ``[1, n_queries, H]`` dream-query hidden states, the
+    conditioning of text-to-image creation: ``bos`` + the prompt's tokens +
+    a dream span, one spliced forward with plain attention (as JAX,
+    ``use_flash=False``), the queries' states gathered. ``tokenizer`` has
+    ``encode(str) -> list[int]``; the forward runs where the parameters
+    are."""
+    st = cfg.special_tokens
+    dev = params["llm"]["embed_tokens"].device
+    ids = [st.bos] + list(tokenizer.encode(prompt))
+    dream_pos = torch.tensor([[len(ids) + 1]], device=dev)
+    ids += [st.dream_start] + [st.dream] * cfg.n_dream_queries + [st.dream_end]
+    arr = torch.tensor([ids], dtype=torch.long, device=dev)
+    embeds = multimodal_embed(params, cfg, arr, dream_positions=dream_pos)
+    out = llama_forward(params["llm"], cfg.llm, inputs_embeds=embeds, use_flash=False)
+    cond, _ = extract_dream_hidden(out["last_hidden_state"], dream_pos, cfg.n_dream_queries)
+    return cond[:, 0]
 
 
 def unconditional_dream_hidden(params: Params, cfg: DreamLLMConfig, *,

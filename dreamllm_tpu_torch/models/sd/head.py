@@ -5,8 +5,11 @@ CFG denoise loop (DDIM or DPM-Solver++(2M)) followed by the VAE decode.
 
 The denoise loop is a Python loop (JAX's is a ``fori_loop``): the CFG batch
 is ``[uncond, cond]``, the UNet runs in the projector output's dtype, and
-guidance, the sampler step and the VAE decode run in float32. DeepCache and
-the SDXL head come with later slices.
+guidance, the sampler step and the VAE decode run in float32. With
+``deepcache_interval=k > 1`` (DeepCache) the full UNet runs on the steps
+``i % k == 0`` and keeps its deep feature, and the steps between run the
+shallow UNet on it; the loop chooses on the host (JAX's ``lax.cond`` on the
+device). The SDXL head is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +38,12 @@ from dreamllm_tpu_torch.models.sd.schedulers import (
     rescale_noise_cfg,
     snr,
 )
-from dreamllm_tpu_torch.models.sd.unet import UNetConfig, init_unet_params, unet_forward
+from dreamllm_tpu_torch.models.sd.unet import (
+    UNetConfig,
+    init_unet_params,
+    unet_forward,
+    unet_forward_shallow,
+)
 from dreamllm_tpu_torch.models.sd.vae import (
     VAEConfig,
     init_vae_params,
@@ -211,11 +219,15 @@ def sd_head_pipeline(
     guidance_scale: float = 7.5,
     guidance_rescale: float = 0.0,
     sampler: str = "ddim",  # "ddim" | "dpm"
+    deepcache_interval: int = 1,  # k > 1: full UNet every k-th step, shallow between
+    return_latents: bool = False,
     latents: torch.Tensor | None = None,  # start noise override [B, h, w, 4]
 ) -> torch.Tensor:
     """Images ``[B, H, W, 3]`` in [0, 1] (float32) from dream-query hidden
-    states. The start noise is ``latents``, or float32 normal noise from
-    ``generator`` on the device of ``cond_embeds``."""
+    states, or with ``return_latents`` the final float32 latents ``[B, h,
+    w, 4]`` without the VAE decode. The start noise is ``latents``, or
+    float32 normal noise from ``generator`` on the device of
+    ``cond_embeds``."""
     dev = cond_embeds.device
     sched = cfg.schedule(dev)
     b = cond_embeds.shape[0]
@@ -247,10 +259,17 @@ def sd_head_pipeline(
         return torch.full((n,), t, dtype=torch.long, device=dev)
 
     last_x0 = None
+    deep = None  # the deep feature of the latest full step
     for i, t in enumerate(ts):
         t_prev = ts[i + 1] if i + 1 < len(ts) else -1
         lat_in = torch.cat([latents, latents], dim=0).to(cond.dtype)
-        out = unet_forward(params["unet"], cfg.unet, lat_in, full(t, 2 * b), ctx).float()
+        if deepcache_interval <= 1 or i % deepcache_interval == 0:
+            out, deep = unet_forward(params["unet"], cfg.unet, lat_in, full(t, 2 * b), ctx,
+                                     return_deep=True)
+        else:
+            out = unet_forward_shallow(params["unet"], cfg.unet, lat_in, full(t, 2 * b), ctx,
+                                       deep)
+        out = out.float()
         un, co = out.chunk(2, dim=0)
         model_out = rescale_noise_cfg(classifier_free_guidance(co, un, guidance_scale), co,
                                       guidance_rescale)
@@ -261,5 +280,7 @@ def sd_head_pipeline(
             latents, last_x0 = dpm_solver_step(sched, model_out, full(t, b), full(t_prev, b),
                                                latents, last_x0, t_last)
 
+    if return_latents:
+        return latents
     imgs = vae_decode(params["vae"], cfg.vae, latents / cfg.vae.scaling_factor)
     return (imgs / 2.0 + 0.5).clamp(0.0, 1.0)

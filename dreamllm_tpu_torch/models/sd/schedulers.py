@@ -1,4 +1,4 @@
-"""Diffusion noise schedule and the inference samplers, DDIM and
+"""Diffusion noise schedule and the samplers, DDPM (ancestral), DDIM and
 DPM-Solver++(2M), with the training-side helpers ``add_noise``,
 ``get_velocity`` and ``snr`` (port of
 ``dreamllm_tpu/models/sd/schedulers.py``).
@@ -21,6 +21,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
+    betas: torch.Tensor            # [T] float32
     alphas_cumprod: torch.Tensor   # [T] float32
     num_train_timesteps: int
     prediction_type: str = "epsilon"  # "epsilon" | "v_prediction"
@@ -32,6 +33,7 @@ def make_schedule(num_train_timesteps: int = 1000, prediction_type: str = "epsil
     betas = np.linspace(0.00085**0.5, 0.012**0.5, num_train_timesteps, dtype=np.float64) ** 2
     alphas_cumprod = np.cumprod(1.0 - betas)
     return DiffusionSchedule(
+        betas=torch.tensor(betas, dtype=torch.float32, device=device),
         alphas_cumprod=torch.tensor(alphas_cumprod, dtype=torch.float32, device=device),
         num_train_timesteps=num_train_timesteps,
         prediction_type=prediction_type,
@@ -76,6 +78,29 @@ def pred_x0_eps(sched: DiffusionSchedule, model_out, x_t, t):
     else:
         raise ValueError(sched.prediction_type)
     return x0, eps
+
+
+def ddpm_step(sched: DiffusionSchedule, model_out, t, x_t,
+              generator: torch.Generator | None = None):
+    """One ancestral DDPM step x_t → x_{t-1} (diffusers ``DDPMScheduler.step``,
+    ``variance_type="fixed_small"``, no clipping: SD latents are unbounded).
+    The noise is standard normal from ``generator`` on ``x_t``'s device; it
+    is not added where ``t == 0``."""
+    acp_t = _extract(sched.alphas_cumprod, t, x_t.ndim)
+    acp_prev_table = torch.cat([torch.ones_like(sched.alphas_cumprod[:1]),
+                                sched.alphas_cumprod[:-1]])
+    acp_prev = _extract(acp_prev_table, t, x_t.ndim)
+    beta_t = _extract(sched.betas, t, x_t.ndim)
+    alpha_t = 1.0 - beta_t
+
+    x0, _ = pred_x0_eps(sched, model_out, x_t, t)
+    coef_x0 = acp_prev.sqrt() * beta_t / (1.0 - acp_t)
+    coef_xt = alpha_t.sqrt() * (1.0 - acp_prev) / (1.0 - acp_t)
+    mean = coef_x0 * x0 + coef_xt * x_t
+    var = beta_t * (1.0 - acp_prev) / (1.0 - acp_t)
+    noise = torch.randn(x_t.shape, dtype=x_t.dtype, device=x_t.device, generator=generator)
+    nonzero = (t > 0).float().reshape((-1,) + (1,) * (x_t.ndim - 1))
+    return mean + nonzero * var.clamp_min(1e-20).sqrt() * noise
 
 
 def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int) -> torch.Tensor:

@@ -5,9 +5,15 @@ The spatial self-attention of each transformer block goes through
 :func:`flash_attention`, exactly where the JAX UNet calls it: at 512 px the
 64x64 (S 4096, 5 heads) and 32x32 (S 1024, 10 heads) levels pass the flash
 rule and run the Hopper kernel; the 16x16 and 8x8 levels and every
-cross-attention (64 KV tokens) take the plain path. SDXL's text-time
-embedding, ControlNet residuals, checkpointing and the DeepCache shallow
-pass come with later slices.
+cross-attention (64 KV tokens) take the plain path.
+
+DeepCache: ``unet_forward(return_deep=True)`` also returns the feature that
+enters the last (shallowest) up block, and :func:`unet_forward_shallow`
+reuses it on the steps between two full ones, where only ``conv_in``, the
+first down block and the last up block run: at 512 px that is the 64x64
+level's 2 down and 3 up self-attentions, 5 flash launches of the full
+forward's 10. SDXL's text-time embedding and ControlNet residuals are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -214,6 +220,45 @@ def init_unet_params(cfg: UNetConfig, *, generator: torch.Generator | None = Non
 # ---------------------------------------------------------------------------
 
 
+def _time_embedding(params: Params, cfg: UNetConfig, timesteps: torch.Tensor,
+                    sample: torch.Tensor) -> torch.Tensor:
+    if timesteps.ndim == 0:
+        timesteps = timesteps.expand(sample.shape[0])
+    temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(sample.dtype)
+    te = params["time_embedding"]
+    return dense(F.silu(dense(temb, te["linear_1"])), te["linear_2"])
+
+
+def _down_resnets(blk, n_heads, groups, h, temb, ctx) -> list:
+    """A down block's resnets (each followed by its transformer, if any):
+    their outputs, the block's skips."""
+    outs = []
+    for j, r in enumerate(blk["resnets"]):
+        h = resnet_block(r, h, temb, groups=groups, eps=1e-5)
+        if "attentions" in blk:
+            h = _transformer2d(blk["attentions"][j], h, ctx, n_heads, groups)
+        outs.append(h)
+    return outs
+
+
+def _up_block(blk, n_heads, groups, h, temb, ctx, *take):
+    """An up block over its skips ``take``, the last one first."""
+    for j, r in enumerate(blk["resnets"]):
+        h = torch.cat([h, take[-(j + 1)]], dim=-1)
+        h = resnet_block(r, h, temb, groups=groups, eps=1e-5)
+        if "attentions" in blk:
+            h = _transformer2d(blk["attentions"][j], h, ctx, n_heads, groups)
+    if "upsample" in blk:
+        h = upsample(blk["upsample"], h)
+    return h
+
+
+def _head_out(params: Params, groups: int, h: torch.Tensor) -> torch.Tensor:
+    h = F.silu(group_norm(h, params["norm_out"]["w"], params["norm_out"]["b"],
+                          num_groups=groups, eps=1e-5))
+    return conv2d(h, params["conv_out"])
+
+
 def unet_forward(
     params: Params,
     cfg: UNetConfig,
@@ -221,17 +266,16 @@ def unet_forward(
     timesteps: torch.Tensor,              # [B] or scalar
     encoder_hidden_states: torch.Tensor,  # [B, S_ctx, cross_attention_dim]
     remat: bool = False,
-) -> torch.Tensor:
+    return_deep: bool = False,
+):
     """``remat``: checkpoint each down, mid and up block
     (``torch.utils.checkpoint``, non-reentrant): the backward keeps only the
-    activations at block boundaries and recomputes inside a block."""
+    activations at block boundaries and recomputes inside a block.
+    ``return_deep``: return ``(out, deep)``, ``deep`` the input of the last
+    up block (DeepCache's cached feature)."""
     g = cfg.norm_num_groups
     heads = cfg.num_attention_heads
-    if timesteps.ndim == 0:
-        timesteps = timesteps.expand(sample.shape[0])
-    temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(sample.dtype)
-    te = params["time_embedding"]
-    temb = dense(F.silu(dense(temb, te["linear_1"])), te["linear_2"])
+    temb = _time_embedding(params, cfg, timesteps, sample)
     ctx = encoder_hidden_states.to(sample.dtype)
 
     def ckpt(fn, *args):
@@ -240,31 +284,15 @@ def unet_forward(
         return fn(*args)
 
     def down_blk(blk, n_heads, h, temb, ctx):
-        outs = []
-        for j, r in enumerate(blk["resnets"]):
-            h = resnet_block(r, h, temb, groups=g, eps=1e-5)
-            if "attentions" in blk:
-                h = _transformer2d(blk["attentions"][j], h, ctx, n_heads, g)
-            outs.append(h)
+        outs = _down_resnets(blk, n_heads, g, h, temb, ctx)
         if "downsample" in blk:
-            h = downsample(blk["downsample"], h)
-            outs.append(h)
+            outs.append(downsample(blk["downsample"], outs[-1]))
         return tuple(outs)
 
     def mid_blk(m, h, temb, ctx):
         h = resnet_block(m["resnet1"], h, temb, groups=g, eps=1e-5)
         h = _transformer2d(m["attention"], h, ctx, heads[-1], g)
         return resnet_block(m["resnet2"], h, temb, groups=g, eps=1e-5)
-
-    def up_blk(blk, n_heads, h, temb, ctx, *take):
-        for j, r in enumerate(blk["resnets"]):
-            h = torch.cat([h, take[-(j + 1)]], dim=-1)
-            h = resnet_block(r, h, temb, groups=g, eps=1e-5)
-            if "attentions" in blk:
-                h = _transformer2d(blk["attentions"][j], h, ctx, n_heads, g)
-        if "upsample" in blk:
-            h = upsample(blk["upsample"], h)
-        return h
 
     h = conv2d(sample, params["conv_in"])
     skips = [h]
@@ -276,11 +304,37 @@ def unet_forward(
     h = ckpt(mid_blk, params["mid"], h, temb, ctx)
 
     rev_heads = list(reversed(heads))
+    deep = None
     for i, blk in enumerate(params["up"]):
+        if i == len(params["up"]) - 1:
+            deep = h  # the feature entering the last (shallowest) up block
         n_res = len(blk["resnets"])
         take, skips = skips[-n_res:], skips[:-n_res]
-        h = ckpt(up_blk, blk, rev_heads[i], h, temb, ctx, *take)
+        h = ckpt(_up_block, blk, rev_heads[i], g, h, temb, ctx, *take)
 
-    h = F.silu(group_norm(h, params["norm_out"]["w"], params["norm_out"]["b"],
-                          num_groups=g, eps=1e-5))
-    return conv2d(h, params["conv_out"])
+    out = _head_out(params, g, h)
+    return (out, deep) if return_deep else out
+
+
+def unet_forward_shallow(
+    params: Params,
+    cfg: UNetConfig,
+    sample: torch.Tensor,                 # [B, H, W, in_ch] latents (NHWC)
+    timesteps: torch.Tensor,              # [B] or scalar
+    encoder_hidden_states: torch.Tensor,  # [B, S_ctx, cross_attention_dim]
+    deep_feature: torch.Tensor,           # cached input of the last up block
+) -> torch.Tensor:
+    """DeepCache's cached step: ``conv_in`` and the first down block's
+    resnets (and transformers) give fresh skips, and the last up block runs
+    on ``deep_feature`` from the latest full step (:func:`unet_forward` with
+    ``return_deep=True``), taking the skips last first, as the full forward
+    does. The first down block's downsample and everything deeper are
+    skipped."""
+    g = cfg.norm_num_groups
+    n_heads = cfg.num_attention_heads[0]
+    temb = _time_embedding(params, cfg, timesteps, sample)
+    ctx = encoder_hidden_states.to(sample.dtype)
+    h = conv2d(sample, params["conv_in"])
+    skips = [h] + _down_resnets(params["down"][0], n_heads, g, h, temb, ctx)
+    h = _up_block(params["up"][-1], n_heads, g, deep_feature, temb, ctx, *skips)
+    return _head_out(params, g, h)

@@ -8,13 +8,17 @@ of orbax). Each top-level parameter subtree is its own file inside
       opt_state.pt  meta.json  host_state.json
 
 ``load_params(dir, overrides={"sd_head": other_dir})`` re-points individual
-plugins at another run's checkpoint: the stage-mix workflow. Checkpoints
+plugins at another run's checkpoint: the stage-mix workflow. Quantized
+weights (``QTensor``, ``Q4Tensor``) and 8-bit moments are stored as tagged
+dicts of CPU tensors, so every file loads with ``weights_only=True`` and
+comes back as the same types, with ``like=`` and without it. Checkpoints
 written by the JAX package (orbax) are not read here; bring a JAX state
 across with ``bridge.from_jax`` and ``bridge.opt_state_from_jax``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -23,6 +27,8 @@ from typing import Any
 
 import torch
 
+from dreamllm_tpu_torch.ops.quant import QTensor
+from dreamllm_tpu_torch.ops.quant4 import GROUP, Q4Tensor
 from dreamllm_tpu_torch.train.optim8bit import _Moment
 from dreamllm_tpu_torch.train.tree import tree_map
 
@@ -32,11 +38,17 @@ def _ckpt_dir(root: str, step: int) -> str:
 
 
 def _to_cpu(tree):
-    """Tensors moved to the CPU; a stored moment becomes a tagged dict so
-    the file holds plain containers and tensors only."""
+    """Tensors moved to the CPU; a stored moment or a quantized weight
+    becomes a tagged dict, so the file holds plain containers and tensors
+    only."""
     def one(x):
         if isinstance(x, _Moment):
             return {"__moment__": True, "codes": x.codes.cpu(), "scale": x.scale.cpu()}
+        if isinstance(x, QTensor):
+            return {"__qtensor__": True, "q": x.q.detach().cpu(), "scale": x.scale.detach().cpu()}
+        if isinstance(x, Q4Tensor):
+            return {"__q4tensor__": True, "packed": x.packed.detach().cpu(),
+                    "scale": x.scale.detach().cpu(), "group": GROUP, "shape": list(x.shape)}
         return x.detach().cpu() if torch.is_tensor(x) else x
 
     return tree_map(one, tree)
@@ -46,6 +58,15 @@ def _from_saved(tree):
     if isinstance(tree, dict):
         if tree.get("__moment__"):
             return _Moment(tree["codes"], tree["scale"])
+        if tree.get("__qtensor__"):
+            return QTensor(tree["q"], tree["scale"])
+        if tree.get("__q4tensor__"):
+            out = Q4Tensor(tree["packed"], tree["scale"])
+            if tree["group"] != GROUP or list(out.shape) != list(tree["shape"]):
+                raise ValueError(f"int4 weight saved with group {tree['group']} and shape "
+                                 f"{tree['shape']}; this port reads group {GROUP}, and the "
+                                 f"packed tensor gives shape {list(out.shape)}")
+            return out
         return {k: _from_saved(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_from_saved(v) for v in tree]
@@ -68,6 +89,12 @@ def _like(tree, like, where: str):
         if not isinstance(tree, _Moment):
             raise ValueError(f"{where}: expected an 8-bit moment, checkpoint has {type(tree)}")
         return _Moment(_like(tree.codes, like.codes, where), _like(tree.scale, like.scale, where))
+    if isinstance(like, (QTensor, Q4Tensor)):
+        if type(tree) is not type(like):
+            raise ValueError(f"{where}: expected a {type(like).__name__}, checkpoint has "
+                             f"{type(tree).__name__}")
+        return type(like)(*(_like(getattr(tree, f.name), getattr(like, f.name), f"{where}/{f.name}")
+                            for f in dataclasses.fields(like)))
     if torch.is_tensor(like):
         if not torch.is_tensor(tree) or tuple(tree.shape) != tuple(like.shape):
             raise ValueError(f"{where}: checkpoint shape "

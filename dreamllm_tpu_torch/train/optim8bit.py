@@ -19,6 +19,13 @@ here: a ``[4096]`` norm is 4096 elements in the port and ``32 * 4096`` in
 JAX's ``[32, 4096]`` stack. At the 7B widths every per-layer leaf is a
 multiple of 256 and at least 4096 elements, so both packages make the same
 choice and cut the same blocks.
+
+The 256-blocks run over a leaf in the JAX package's element order. That is
+the row-major order of every leaf but a conv kernel: the port stores those
+OIHW and JAX stores HWIO, so a 4-D leaf is blocked in HWIO order here too
+(:func:`_logical`), in the plain math and on its way to the kernel. Both
+packages then cut the same blocks and compute the same scales, and
+``bridge.opt_state_from_jax`` carries such moments as they are.
 """
 
 from __future__ import annotations
@@ -54,8 +61,14 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / x.new_tensor(c)
 
 
+def _logical(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the order its blocks run: a 4-D (OIHW) conv kernel as HWIO,
+    the JAX package's layout; any other leaf as it is."""
+    return x.permute(2, 3, 1, 0) if x.ndim == 4 else x
+
+
 def _to_blocks(x: torch.Tensor) -> torch.Tensor:
-    flat = x.reshape(-1).float()
+    flat = _logical(x).reshape(-1).float()
     pad = (-flat.numel()) % BLOCK
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
@@ -76,10 +89,16 @@ def _dequant(mq: _Moment) -> torch.Tensor:
 
 
 def _unblock(xb: torch.Tensor, shape) -> torch.Tensor:
+    """Inverse of :func:`_to_blocks`: a 4-D ``shape`` is OIHW, its blocks
+    HWIO."""
     n = 1
     for s in shape:
         n *= s
-    return xb.reshape(-1)[:n].reshape(tuple(shape))
+    flat = xb.reshape(-1)[:n]
+    if len(shape) == 4:
+        o, i, h, w = shape
+        return flat.reshape(h, w, i, o).permute(3, 2, 0, 1)
+    return flat.reshape(tuple(shape))
 
 
 def quantize_blockwise(x: torch.Tensor, block: int = BLOCK, *, floor_positive: bool = False):
@@ -217,6 +236,21 @@ def adam8bit_update_cuda(g, p, mq: _Moment, vq: _Moment, scalars, *, b1, b2, eps
 adam8bit_update_cuda.launches = 0
 
 
+def adam8bit_update_fused(g, p, mq: _Moment, vq: _Moment, scalars, *, b1, b2, eps,
+                          wd: float = 0.0, skip=None):
+    """One CUDA leaf through the kernel, blocked as
+    :func:`adam8bit_update_reference` blocks it: a 4-D (OIHW) leaf goes to
+    the kernel in HWIO order and its update comes back as an OIHW view.
+    Codes and scales are overwritten in place, and the update is written
+    over the gradient in that order (the gradient's own storage where it is
+    contiguous there: the gradient is consumed)."""
+    gl = _logical(g).contiguous()
+    pl = _logical(p).contiguous() if p is not None else gl
+    upd = adam8bit_update_cuda(gl, pl, mq, vq, scalars, b1=b1, b2=b2, eps=eps, wd=wd,
+                               skip=skip, out=gl)
+    return upd.permute(3, 2, 0, 1) if g.ndim == 4 else upd
+
+
 # ---------------------------------------------------------------------------
 # The transform
 # ---------------------------------------------------------------------------
@@ -332,11 +366,8 @@ def adamw_8bit(
                 return _adam_fp32(g, p, mq, vq, lr, bc1, bc2, b1=b1, b2=b2, eps=eps, wd=wd,
                                   skip=skip)
             if fused_update and g.device.type != "cpu":
-                # blocks run over the logical (row-major) order of the leaf
-                g = g.contiguous()
-                upd = adam8bit_update_cuda(g, p.contiguous() if p is not None else g, mq, vq,
-                                           scalars, b1=b1, b2=b2, eps=eps, wd=wd,
-                                           skip=skip_flag, out=g)
+                upd = adam8bit_update_fused(g, p, mq, vq, scalars, b1=b1, b2=b2, eps=eps, wd=wd,
+                                            skip=skip_flag)
                 return upd, mq, vq
             return adam8bit_update_reference(g, p, mq, vq, scalars, b1=b1, b2=b2, eps=eps,
                                              wd=wd, skip=skip)

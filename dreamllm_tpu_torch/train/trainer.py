@@ -9,7 +9,9 @@ of ``dreamllm_tpu/train/trainer.py``):
 * tokens/sec and steps/sec;
 * ``val_steps``-gated validation through a user ``val_fn``;
 * a checkpoint every ``save_steps`` in the LLM-versus-plugin split layout,
-  auto-resume from the latest one, ``save_total_limit`` pruning;
+  and one at the end whenever the run took a step (whatever ``save_steps``
+  is, as in JAX); auto-resume from the latest one, ``save_total_limit``
+  pruning;
 * callbacks: ``on_step``/``on_log``/``on_save``/``on_validate``.
 """
 
@@ -44,7 +46,7 @@ logger = get_logger("dreamllm_tpu_torch.train")
 class TrainerConfig:
     max_steps: int = 1000
     log_steps: int = 10
-    save_steps: int = 500       # 0 disables checkpoints, the final one too
+    save_steps: int = 500       # 0 disables the periodic ones; the final one is always saved
     val_steps: int = 0          # 0 disables mid-training validation
     output_dir: str = "./runs/train"
     resume: bool = True
@@ -206,6 +208,6 @@ class Trainer:
             if self.cfg.save_steps and cur % self.cfg.save_steps == 0:
                 self.save(cur)
 
-        if self.cfg.save_steps and int(self.state.step) > start_step:
+        if int(self.state.step) > start_step:
             self.save(int(self.state.step))
         return self.state

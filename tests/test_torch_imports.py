@@ -54,6 +54,14 @@ def test_walk_covers_the_serving_modules():
         assert f"dreamllm_tpu_torch/{mod}.py" in names
 
 
+def test_walk_covers_the_chat_and_t2i_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("generation/chat", "generation/stopping", "data/conversation",
+                "data/dataset_types", "data/tokenization", "models/projector", "models/sd/head",
+                "models/sd/schedulers"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
+
+
 CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 
 
@@ -101,6 +109,7 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import dreamllm_tpu_torch.bridge, dreamllm_tpu_torch.train.trainer\n"
         "import dreamllm_tpu_torch.train.optim, dreamllm_tpu_torch.train.checkpoints\n"
         "import dreamllm_tpu_torch.serve.engine, dreamllm_tpu_torch.ops.quant\n"
+        "import dreamllm_tpu_torch.generation.chat, dreamllm_tpu_torch.data.tokenization\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )

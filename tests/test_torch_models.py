@@ -196,9 +196,15 @@ def test_encode_images_through_projector():
 
 
 def test_projector_types_beyond_linear_raise():
-    cfg = pproj.ProjectorConfig(projector_type="mlp")
-    with pytest.raises(NotImplementedError):
-        pproj.init_projector_params(cfg, device="cpu")
+    """Every projector type of the JAX package is ported now (parity in
+    tests/test_torch_projector.py): an ``mlp`` builds, and only a type that
+    neither package knows raises."""
+    cfg = pproj.ProjectorConfig(projector_type="mlp", in_dim=8, out_dim=16, depth=2)
+    assert [tuple(l["w"].shape) for l in pproj.init_projector_params(cfg, device="cpu")[
+        "layers"]] == [(8, 16), (16, 16)]
+    with pytest.raises(ValueError, match="unknown projector_type"):
+        pproj.init_projector_params(pproj.ProjectorConfig(projector_type="qformer"),
+                                    device="cpu")
 
 
 # ---------------------------------------------------------------------------

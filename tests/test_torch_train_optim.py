@@ -371,3 +371,52 @@ def test_multipliers_and_ema_match_jax():
     want = joptim.ema_update({"w": jnp.asarray(e)}, {"w": jnp.asarray(p)}, 0.99)
     got = poptim.ema_update({"w": t(e)}, {"w": t(p)}, 0.99)
     np.testing.assert_allclose(n(got["w"]), np.asarray(want["w"]), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# 8-bit moments of a conv kernel: blocked in the JAX package's HWIO order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 16, 24), (3, 3, 32, 64)], ids=["ragged", "whole"])
+def test_adamw_8bit_conv_leaf_matches_jax(shape):
+    """Two 8-bit AdamW updates of a trainable ``[3, 3, cin, cout]`` conv
+    kernel, HWIO in JAX and OIHW (channels-last, as the bridge stores it)
+    in the port, through the port's plain math on the CPU. The port must
+    cut the same 256-blocks as JAX: codes within the limits of
+    :func:`test_adamw_8bit_matches_both_jax_paths` (off by at most one, in
+    at most 1 of 1000), scales within two float32 ulps, updates within 1e-6
+    relative of lr; and the bridge carries JAX's moments as they are."""
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    kw = dict(b1=0.9, b2=0.99, eps=1e-8, weight_decay=0.05)
+    jtx = j8.adamw_8bit(3e-3, mask={"w": True}, **kw)
+    ptx = p8.adamw_8bit(3e-3, mask={"w": True}, fused_update=True, **kw)  # CPU: plain math
+    hwio_to_oihw = (3, 2, 0, 1)
+    jp = {"w": jnp.asarray(w)}
+    pp = {"w": t(w).permute(*hwio_to_oihw).contiguous(memory_format=torch.channels_last)}
+    js, ps = jtx.init(jp), ptx.init(pp)
+    for i in range(2):
+        g = _grad(w, i).astype(np.float32)
+        ju, js = jtx.update({"w": jnp.asarray(g)}, js, jp)
+        pu, ps = ptx.update({"w": t(g).permute(*hwio_to_oihw)}, ps, pp)
+        assert tuple(pu["w"].shape) == tuple(pp["w"].shape)
+        np.testing.assert_allclose(n(pu["w"].permute(2, 3, 1, 0)), np.asarray(ju["w"]),
+                                   atol=1e-6 * 3e-3, err_msg=f"update step {i}")
+        for key, jtree in (("m", js.m), ("v", js.v)):
+            pm, jm = ps[key]["w"], jtree["w"]
+            diff = np.abs(n(pm.codes).astype(np.int32) - np.asarray(jm.codes).astype(np.int32))
+            assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3, (key, i)
+            np.testing.assert_allclose(n(pm.scale), np.asarray(jm.scale), rtol=2.4e-7)
+        jp = {"w": jp["w"] + ju["w"]}
+        w = np.asarray(jp["w"])
+        pp = {"w": t(w).permute(*hwio_to_oihw).contiguous(memory_format=torch.channels_last)}
+    carried = opt_state_from_jax(_np_tree(js), ps, params=pp, device="cpu")
+    for key in ("m", "v"):
+        jm = getattr(js, key)["w"]
+        np.testing.assert_array_equal(n(carried[key]["w"].codes), np.asarray(jm.codes))
+        np.testing.assert_array_equal(n(carried[key]["w"].scale), np.asarray(jm.scale))
+    # the carried moments dequantize to JAX's, element by element, in the port's layout
+    np.testing.assert_array_equal(
+        n(p8.dequant_moment_m(carried["m"]["w"], tuple(pp["w"].shape)).permute(2, 3, 1, 0)),
+        np.asarray(j8.dequant_moment_m(js.m["w"], shape)))

@@ -125,9 +125,10 @@ def test_trainer_save_resume_prune_and_logs(tmp_path):
         diff = (a - b).abs()
         assert float((diff > 2e-5).float().mean()) <= 1e-3 and float(diff.max()) <= 1e-3
 
-    # resume=False starts over; save_steps=0 writes nothing
+    # resume=False starts over; save_steps=0 still saves the final step, as JAX does
     fresh = _make(tmp_path / "b", 1, save_steps=0, resume=False, log_steps=0)
     assert int(fresh.train().step) == 1
+    assert os.path.exists(os.path.join(tmp_path / "b", "checkpoint-000001", "meta.json"))
     assert pckpt.latest_checkpoint(str(tmp_path / "b")).endswith("checkpoint-000004")
 
 
