@@ -12,15 +12,18 @@ Phases, each on lines of its own; any failure exits non-zero:
    fused 8-bit AdamW, w4a16 int4 matmul) against its plain PyTorch version
    on the card at the shapes the main paths give it (the flash kernels and
    the int4 matmul also twice, for equal bits; the 8-bit AdamW also on a
-   conv kernel, which its caller blocks in HWIO order), timed beside the
-   plain version, PyTorch's own library call where there is one, and the
-   card's bound;
+   conv kernel, which its caller blocks in HWIO order, and on the float32
+   factors of a LoRA adapter), timed beside the plain version, PyTorch's
+   own library call where there is one, and the card's bound;
 4. small reference: a tiny random DreamLLM document, an image-out chat
    turn, a text-to-image at DeepCache interval 2 (the tiny UNet's
    ``conv_out`` redrawn at its fan-in scale, so that the images depend on
    the UNet), a tiny train step and a
    tiny int4 decoder's ``generate_text`` (batch 1 and 8) and engine (4
-   slots, 6 requests) on the card agree with the same on the CPU;
+   slots, 6 requests), and the same decoder with a LoRA adapter attached
+   (``generate_text``, the engine with the prefix cache and an embeddings
+   prompt, a micro-batching ``ModelServer``, one QLoRA step) on the card
+   agree with the same on the CPU;
 5. main path, serving: a random full-width DreamLLM-7B + SD-2.1 (bf16,
    seeded, built on the card) writes one interleaved document with two
    512x512 images; then, on the same parameters with the UNet's
@@ -45,7 +48,16 @@ Phases, each on lines of its own; any failure exits non-zero:
    layout, bf16 cache) and at batch 8 on the int8 cache, then the
    continuous-batching engine with ``projects/dreamllm/serve.py``'s defaults
    (8 slots, unfused int4) answering 16 requests; the w4a16 kernel's launch
-   count and one decode step's logits against its plain version are checked.
+   count and one decode step's logits against its plain version are checked;
+8. main path, QLoRA and HTTP serving: a rank-8 LoRA adapter over that int4
+   decoder takes three QLoRA steps at batch 2 x 2048 (8-bit AdamW on its
+   float32 factors, lr 2e-4); then the adapter is served attached:
+   ``generate_text`` beside the bare base, the engine with the prompt-prefix
+   cache (16 requests under two 512-token system prompts, against the same
+   engine without the cache) and embeddings prompts, and ``ModelServer`` on
+   127.0.0.1 (``/health``, ``/generate`` with and without streaming,
+   ``/logprob``, ``/chat`` with a 224x224 image through the engine's
+   embeddings lanes), called through ``OnlineClient``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -469,11 +481,18 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
             "bound_by": bound_by, "bound_share": bound_ms / ms, "tile_share": tile_share}
 
 
-def _adam_case(name, shape, gen, steps=3):
-    """The fused 8-bit AdamW kernel on one bf16 leaf over ``steps`` successive
-    steps against its plain version. Each step both start from the kernel's
-    previous state, so a one-code difference cannot compound into the next
-    comparison. The kernel is called as the optimizer calls it
+def _ulp(x: float, dtype) -> float:
+    """Spacing of ``dtype`` numbers (bfloat16 or float32) at magnitude ``x``."""
+    return bf16_ulp(x) if dtype == torch.bfloat16 else 2.0 ** (math.floor(math.log2(x)) - 23)
+
+
+def _adam_case(name, shape, gen, steps=3, dtype=torch.bfloat16):
+    """The fused 8-bit AdamW kernel on one leaf (bf16 parameters, or the
+    float32 factors of a LoRA adapter over an int4 base) over ``steps``
+    successive steps against its plain version. Each step both start from
+    the kernel's previous state, so a one-code difference cannot compound
+    into the next comparison. The update is held to one ulp of the leaf's
+    dtype. The kernel is called as the optimizer calls it
     (``adam8bit_update_fused``): a 4-D leaf is an OIHW conv kernel, stored
     channels-last as the port stores them, and goes to the kernel in the
     HWIO order in which the plain version cuts its 256-blocks."""
@@ -488,7 +507,7 @@ def _adam_case(name, shape, gen, steps=3):
 
     dev = "cuda"
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
-    p = (torch.randn(shape, generator=gen, device=dev) * 0.02).bfloat16()
+    p = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
     if len(shape) == 4:
         p = p.contiguous(memory_format=torch.channels_last)
     zeros = torch.zeros(shape, device=dev)
@@ -497,13 +516,13 @@ def _adam_case(name, shape, gen, steps=3):
     worst_upd = worst_scale = 0.0
     code_share = 0.0
     for step in range(steps):
-        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).bfloat16()
+        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dtype)
         count = step + 1
         scalars = torch.tensor([4e-5, 1 - 0.9 ** count, 1 - 0.999 ** count], device=dev)
         want_u, want_m, want_v = adam8bit_update_reference(g, p, mq, vq, scalars, **hyper)
         got_u = adam8bit_update_fused(g.clone(), p, mq, vq, scalars, **hyper)  # mq, vq in place
         torch.cuda.synchronize()
-        ulp = bf16_ulp(want_u.float().abs().max().item())
+        ulp = _ulp(want_u.float().abs().max().item(), dtype)
         worst_upd = max(worst_upd, (got_u.float() - want_u.float()).abs().max().item() / ulp)
         for got_q, want_q in ((mq, want_m), (vq, want_v)):
             diff = (got_q.codes.int() - want_q.codes.int()).abs()
@@ -532,17 +551,19 @@ def _adam_case(name, shape, gen, steps=3):
     ms = device_ms(lambda: adam8bit_update_cuda(gl, pl, mq, vq, scalars, **hyper), 20)
     call_ms = cuda_ms(lambda: adam8bit_update_cuda(gl, pl, mq, vq, scalars, **hyper), 20)
     plain_ms = device_ms(lambda: adam8bit_update_reference(g, p, mq, vq, scalars, **hyper), 5)
-    # g, p read and the update written at 2 B; two codes read and written;
-    # two float32 scales per 256 elements read and written
+    # g, p read and the update written at 2 B (bf16) or 4 B (float32); two
+    # codes read and written; two float32 scales per 256 elements read and
+    # written
     nb = -(-n // 256)
-    nbytes = 10 * n + 16 * nb
+    nbytes = (3 * p.element_size() + 4) * n + 16 * nb
     bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    log(f"[kernels] adam8bit {name}: update err {worst_upd:.3f} bf16 ulps, scales rel "
+    unit = "bf16" if dtype == torch.bfloat16 else "float32"
+    log(f"[kernels] adam8bit {name}: update err {worst_upd:.3f} {unit} ulps, scales rel "
         f"{worst_scale:.3e}, codes off by one {code_share:.3e}  kernel {ms:.4f} ms (call "
         f"{call_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound {bound_ms * 1e3:.2f} us (bytes)  "
         f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
     return {"shape": name, "max_abs_err": worst_upd * ulp, "update_err_ulps": worst_upd,
-            "scale_rel_err": worst_scale, "codes_off_by_one": code_share, "ms": ms,
+            "ulp_of": unit, "scale_rel_err": worst_scale, "codes_off_by_one": code_share, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": "bytes", "bound_share": bound_ms / ms}
 
@@ -684,6 +705,11 @@ def phase_kernels() -> dict:
         ("norm [4096]", (4096,)),
         # an SD-2.1 UNet conv kernel (OIHW): the caller blocks it in HWIO order
         ("conv [320, 320, 3, 3]", (320, 320, 3, 3)),
+    )]
+    # the float32 factors of a rank-8 LoRA adapter over the int4 7B decoder
+    adam += [_adam_case(name, shape, gen, dtype=torch.float32) for name, shape in (
+        ("lora_a f32 [4096, 8]", (4096, 8)),
+        ("lora_b f32 [8, 4096]", (8, 4096)),
     )]
     w4 = [_w4_case(label, b, torch.bfloat16, gen) for label, b in (
         ("wqkv", 1), ("wqkv", 8), ("wo", 1), ("wo", 3), ("wo", 8), ("w_gate_up", 1),
@@ -1261,6 +1287,177 @@ def phase_small_quant() -> None:
         f"{min(margins):.3e}; w4a16 launches {w4_matmul_cuda.launches - before}")
 
 
+SMALL_QLORA_SEED = 31  # its CPU run's smallest top-2 margin: see the [small-qlora] line
+
+
+def _qlora_step_fn(base, cfg, lcfg, tx):
+    """The QLoRA train step, assembled from the port's entry points as a
+    user would (JAX has no LoRA train-step factory, and the port adds none):
+    next-token cross-entropy over the cache-free decoder (flash attention,
+    full remat) through ``qlora_loss_fn``, then ``tx`` on the factors.
+    Returns ``(step, lm_loss)``; ``step(lora, opt_state, tokens) -> (lora,
+    opt_state, loss)``."""
+    import torch.nn.functional as F
+
+    from dreamllm_tpu_torch.models.llama import llama_forward, llama_logits
+    from dreamllm_tpu_torch.train.lora import qlora_loss_fn
+    from dreamllm_tpu_torch.train.optim import apply_updates
+    from dreamllm_tpu_torch.train.tree import tree_map
+
+    def lm_loss(params, tokens, rng):
+        h = llama_forward(params, cfg, input_ids=tokens, use_flash=True,
+                          remat=True)["last_hidden_state"]
+        logits = llama_logits(params, cfg, h)
+        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1))
+
+    loss_fn = qlora_loss_fn(base, lcfg, lm_loss)
+
+    def step(lora, opt_state, tokens):
+        lora = tree_map(lambda x: x.detach().requires_grad_(True), lora)
+        loss = loss_fn(lora, tokens, None)
+        loss.backward()
+        with torch.no_grad():
+            updates, opt_state = tx.update(tree_map(lambda x: x.grad, lora), opt_state, lora)
+            lora = apply_updates(lora, updates)
+        return lora, opt_state, loss.detach()
+
+    return step, lm_loss
+
+
+def phase_small_qlora() -> None:
+    """A tiny float32 int4 decoder (as the small int4 phase's) with a rank-8
+    LoRA adapter attached (``b`` drawn nonzero, so the correction is live)
+    on the card against the same on the CPU: ``generate_text`` at batch 1
+    and 8; the engine with the prefix cache (4 requests sharing a two-chunk
+    prefix, then one prompt by ids and by its embeddings); a
+    ``DynamicBatcher``-backed ``ModelServer`` answering 4 concurrent HTTP
+    requests; all give the same greedy tokens, with the CPU run's top-2
+    margins above 1e-3 as in the small int4 phase. Then one QLoRA step
+    (8-bit AdamW: on the card the float32 factors go through the fused
+    kernel): loss and every factor within 1e-3 relative, the tolerance of
+    the small train phase."""
+    import concurrent.futures as cf
+
+    import dreamllm_tpu_torch.generation.sampler as sampler
+    import dreamllm_tpu_torch.serve.engine as engine
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from dreamllm_tpu_torch.ops.quant4 import quantize_llama_params_int4, w4_matmul_cuda
+    from dreamllm_tpu_torch.serve.batching import make_batched_generate_fn
+    from dreamllm_tpu_torch.serve.server import ModelServer, OnlineClient
+    from dreamllm_tpu_torch.train.lora import LoRAConfig, attach_lora, init_lora_params
+    from dreamllm_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+    from dreamllm_tpu_torch.train.optim8bit import adam8bit_update_cuda
+    from dreamllm_tpu_torch.train.tree import tree_leaves
+
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    gen = torch.Generator().manual_seed(SMALL_QLORA_SEED)
+    base = quantize_llama_params_int4(init_llama_params(cfg, generator=gen, device="cpu"))
+    lcfg = LoRAConfig()
+    lora = init_lora_params(base, lcfg, generator=gen)
+    for layer in lora["layers"]:
+        for f in layer.values():
+            f["b"] = torch.randn(f["b"].shape, generator=gen) * 0.05
+    lens = torch.randint(10, 41, (8,), generator=gen)
+    ids = torch.zeros((8, int(lens.max())), dtype=torch.long)
+    for i, k in enumerate(lens.tolist()):
+        ids[i, :k] = torch.randint(3, 1024, (k,), generator=gen)
+    prefix = [1] + torch.randint(3, 1024, (63,), generator=gen).tolist()  # two 32-token chunks
+    tails = [torch.randint(3, 1024, (k,), generator=gen).tolist() for k in (5, 9, 14, 20)]
+    budgets = [8, 12, 10, 16]
+    emb_ids = [1] + torch.randint(3, 1024, (40,), generator=gen).tolist()  # two chunks
+    texts_in = [" ".join(f"w{j}" for j in torch.randint(0, 500, (k,), generator=gen).tolist())
+                for k in (6, 9, 12, 15)]
+    tokens = torch.randint(3, 1024, (2, 48), generator=gen)
+    scfg = sampler.SamplingConfig(greedy=True, max_new_tokens=16, eos_token_id=-1)
+    ecfg = engine.EngineConfig(slots=4, prefill_len=32, max_len=128, chunk_steps=4,
+                               prefix_cache_entries=2)
+
+    def run(device, margins):
+        real = sampler.llama_logits
+        record = [margins is not None]
+
+        def spy(*a):
+            out = real(*a)
+            if record[0]:
+                top2 = out.reshape(-1, out.shape[-1]).topk(2, dim=-1).values
+                margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+            return out
+
+        sampler.llama_logits = engine.llama_logits = spy
+        try:
+            base_d, lora_d = _to_device(base, device), _to_device(lora, device)
+            att = attach_lora(base_d, lora_d, lcfg)
+            texts = [sampler.generate_text(att, cfg, ids[:b], lens[:b], scfg,
+                                           device=device)["tokens"].cpu().tolist()
+                     for b in (1, 8)]
+            eng = engine.ContinuousBatchingEngine(
+                att, cfg, sampler.SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=-1),
+                ecfg, device=device)
+            record[0], on = False, record[0]  # warmup's all-zero prompts pick nothing
+            eng.warmup(embeds=True).start()
+            record[0] = on
+            try:
+                with cf.ThreadPoolExecutor(4) as ex:
+                    futs = [ex.submit(eng.submit, prefix + tails[i], max_new_tokens=budgets[i],
+                                      timeout=300) for i in range(4)]
+                    answers = [f.result(timeout=300) for f in futs]
+                by_ids = eng.submit(emb_ids, max_new_tokens=8, timeout=300)
+                emb = att["embed_tokens"][torch.tensor(emb_ids, device=device)]
+                by_embeds = eng.submit(prompt_embeds=emb, max_new_tokens=8, timeout=300)
+                counts = (eng.prefix_hits, eng.prefix_misses)
+            finally:
+                eng.stop()
+            batch_fn = make_batched_generate_fn(att, cfg, ToyTokenizer(vocab_size=1024),
+                                                batch_size=4, max_prompt_len=32, max_new_tokens=8,
+                                                eos_token_id=-1, device=device)
+            server = ModelServer(generate_batch_fn=batch_fn, max_batch=4, batch_window_ms=200,
+                                 port=0).start()
+            try:
+                client = OnlineClient(f"http://127.0.0.1:{server.port}", timeout=300)
+                with cf.ThreadPoolExecutor(4) as ex:
+                    http = list(ex.map(client.generate, texts_in, timeout=300))
+            finally:
+                server.stop()
+            tx = make_optimizer(OptimizerConfig(learning_rate=1e-3, schedule="constant",
+                                                optimizer_8bit=True, min_8bit_size=256,
+                                                fused_update=True))
+            step, _ = _qlora_step_fn(base_d, cfg, lcfg, tx)
+            new, _, loss = step(lora_d, tx.init(lora_d), tokens.to(device))
+            trained = (float(loss), [t.cpu() for t in tree_leaves(new)])
+            return (texts, answers, by_ids, by_embeds, counts, http), trained
+        finally:
+            sampler.llama_logits = engine.llama_logits = real
+
+    margins: list[float] = []
+    ref, ref_train = run("cpu", margins)
+    if not min(margins) > 1e-3:
+        raise AssertionError(f"[small-qlora] a near-tie on the CPU: top-2 margin {min(margins)}")
+    w4_before, adam_before = w4_matmul_cuda.launches, adam8bit_update_cuda.launches
+    got, got_train = run("cuda", None)
+    if w4_matmul_cuda.launches == w4_before or adam8bit_update_cuda.launches == adam_before:
+        raise AssertionError("[small-qlora] the w4a16 or the fused AdamW kernel did not launch")
+    texts, answers, by_ids, by_embeds, counts, http = got
+    if (got != ref or by_ids != by_embeds or counts != (3, 2)
+            or any(len(a) != k for a, k in zip(answers, budgets))):
+        raise AssertionError(f"[small-qlora] card {got} vs CPU {ref}")
+    if not abs(got_train[0] - ref_train[0]) <= 1e-3 * abs(ref_train[0]):
+        raise AssertionError(f"[small-qlora] QLoRA loss: card {got_train[0]} vs CPU {ref_train[0]}")
+    worst = max((a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(got_train[1], ref_train[1]))
+    if not worst <= 1e-3:
+        raise AssertionError(f"[small-qlora] QLoRA factors after one step: card vs CPU {worst}")
+    log(f"[small-qlora] card == CPU: generate_text batch 1 and 8, engine with the prefix cache "
+        f"(hits, misses {counts}; the embeddings prompt gives the ids prompt's tokens), "
+        f"DynamicBatcher server x 4 HTTP requests; smallest top-2 margin {min(margins):.3e}; "
+        f"one QLoRA step: loss {got_train[0]:.6f} (CPU {ref_train[0]:.6f}), factors within "
+        f"{worst:.2e} of the largest; w4a16 launches {w4_matmul_cuda.launches - w4_before}, "
+        f"adam8bit {adam8bit_update_cuda.launches - adam_before}")
+
+
 def unet_flash_sites(unet_cfg, batch: int) -> tuple[int, bool]:
     """How many of the UNet's spatial self-attentions pass the flash rule at
     ``sample_size`` latents (one per transformer layer of every attention
@@ -1557,8 +1754,10 @@ W4_PER_LAYER = {"fused": 4, "unfused": 7}
 W4_STEP_REL_RMS = 5e-2
 
 
-def phase_serve_int4(profile_dir: str | None = None) -> dict:
+def phase_serve_int4(profile_dir: str | None = None) -> tuple[dict, dict]:
     """The quantized serving path at DreamLLM-7B's full width and depth.
+    Returns the launch counts and the unfused int4 decoder, which the QLoRA
+    phase trains an adapter over.
 
     ``generate_text`` (fused int4, 128-token prompts, 128 greedy tokens) at
     batch 1 and 8 on the bf16 cache and at batch 8 on the int8 cache, each
@@ -1728,13 +1927,419 @@ def phase_serve_int4(profile_dir: str | None = None) -> dict:
             f"{want_logits.abs().max().item():.3e}, argmax agrees on {agree:.0%} of 8 rows")
         if profile_dir:
             _profile(step, "int4_decode_step_b8", profile_dir, top=12)
-    return launches
+    return launches, unfused
 
 
-def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8) -> None:
+def _launch_counts() -> dict:
+    from dreamllm_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_cuda
+    from dreamllm_tpu_torch.ops.quant4 import w4_matmul_cuda
+    from dreamllm_tpu_torch.train.optim8bit import adam8bit_update_cuda
+
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd": flash_attention_bwd_cuda.launches,
+            "adam8bit": adam8bit_update_cuda.launches, "w4a16": w4_matmul_cuda.launches}
+
+
+def _zero_launch_counts() -> None:
+    from dreamllm_tpu_torch.ops import quant4
+    from dreamllm_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_cuda
+    from dreamllm_tpu_torch.train.optim8bit import adam8bit_update_cuda
+
+    flash_attention.launches = flash_attention_bwd_cuda.launches = 0
+    adam8bit_update_cuda.launches = quant4.w4_matmul_cuda.launches = 0
+
+
+def _q4_bits(tree) -> list:
+    """Copies of every int4 tensor of a decoder, to check it is unchanged."""
+    return [(t.packed.clone(), t.scale.clone()) for t in _leaves(tree) if hasattr(t, "packed")]
+
+
+def _dequant_ranges():
+    """Wrap the int4 dequantize products (forward, and the backward's
+    ``g @ dequant(W)^T``) in profiler ranges; returns the undo function."""
+    from torch.profiler import record_function
+
+    from dreamllm_tpu_torch.ops import quant4
+
+    impl, bwd = quant4._matmul4_impl, quant4._Matmul4.backward
+
+    def fwd_ranged(x, t):
+        with record_function("int4_product_fwd"):
+            return impl(x, t)
+
+    def bwd_ranged(ctx, g):
+        with record_function("int4_product_bwd"):
+            return bwd(ctx, g)
+
+    quant4._matmul4_impl, quant4._Matmul4.backward = fwd_ranged, staticmethod(bwd_ranged)
+
+    def undo():
+        quant4._matmul4_impl, quant4._Matmul4.backward = impl, staticmethod(bwd)
+    return undo
+
+
+QLORA_LR = 2e-4  # the QLoRA paper's 7B setting (Dettmers et al. 2023), constant
+
+
+def phase_qlora(base: dict, profile_dir: str | None = None) -> tuple[dict, dict]:
+    """QLoRA on DreamLLM-7B's int4 decoder (``base``: the unfused int4
+    layout of the serving phase, 3.51 GiB), then the adapter served as
+    ``projects/dreamllm/serve.py`` builds its server.
+
+    Training: a ``LoRAConfig()`` adapter (rank 8, alpha 16, ``wq wk wv
+    wo``; float32 factors from a seeded generator) takes three steps at
+    batch 2 x 2048 random tokens (:func:`_qlora_step_fn`; ``make_optimizer``
+    with 8-bit AdamW, fused, lr 2e-4 constant, no weight decay, clip 1.0).
+    Step 1's loss must equal the bare base's on the same batch bit for bit
+    (``b`` = 0 adds exact zeros); every loss finite, every ``b`` nonzero
+    after the steps, the base bit-identical; the launches a step derived
+    from the configuration. Serving: ``attach_lora(base, trained)`` through
+    ``generate_text`` (batch 1 and 8, 128-token prompts, 128 greedy tokens,
+    beside the bare base), a zero-``b`` adapter against the bare base, one
+    decode step's logits with the w4a16 kernel against its plain version;
+    the engine with serve.py's defaults and the prefix cache answering 16
+    requests under two 512-token system prompts, against the same engine
+    without the cache, and embeddings prompts against ids prompts; then
+    ``ModelServer`` on 127.0.0.1 with that engine, ``/logprob`` by
+    ``choice_logprobs`` and ``/chat`` through ``make_chat_fn(engine=)`` over
+    DreamLLM-7B's CLIP tower and projector, called through
+    ``OnlineClient``. Returns the launch counts of training and serving."""
+    import concurrent.futures as cf
+
+    import dreamllm_tpu_torch.ops.quant4 as quant4
+    from dreamllm_tpu_torch.configs import dreamllm_7b
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.eval.nlp import choice_logprobs
+    from dreamllm_tpu_torch.generation.chat import make_chat_fn
+    from dreamllm_tpu_torch.generation.sampler import SamplingConfig, generate_text
+    from dreamllm_tpu_torch.models.clip import init_clip_vision_params
+    from dreamllm_tpu_torch.models.llama import init_kv_cache, llama_forward, llama_logits
+    from dreamllm_tpu_torch.models.projector import init_projector_params
+    from dreamllm_tpu_torch.serve import (
+        ContinuousBatchingEngine,
+        EngineConfig,
+        ModelServer,
+        OnlineClient,
+    )
+    from dreamllm_tpu_torch.train.lora import LoRAConfig, attach_lora, init_lora_params
+    from dreamllm_tpu_torch.train.optim import OptimizerConfig, adam_state, make_optimizer
+    from dreamllm_tpu_torch.train.optim8bit import _Moment
+    from dreamllm_tpu_torch.train.tree import tree_leaves
+
+    device = "cuda"
+    sync = torch.cuda.synchronize
+    dcfg = dreamllm_7b(torch.bfloat16)[0]
+    cfg = dcfg.llm
+    vocab, layers = cfg.vocab_size, cfg.num_hidden_layers
+    gen = torch.Generator(device=device).manual_seed(4)
+    lcfg = LoRAConfig()
+    lora = init_lora_params(base, lcfg, generator=gen)
+    n_factors = sum(t.numel() for t in tree_leaves(lora))
+    ocfg = OptimizerConfig(learning_rate=QLORA_LR, schedule="constant", warmup_steps=0,
+                           weight_decay=0.0, max_grad_norm=1.0, optimizer_8bit=True,
+                           fused_update=True)
+    tx = make_optimizer(ocfg)
+    opt_state = tx.init(lora)
+    n_8bit = sum(isinstance(m, _Moment) for m in tree_leaves(adam_state(opt_state)["m"]))
+    step, lm_loss = _qlora_step_fn(base, cfg, lcfg, tx)
+    steps, rows, seq = 3, 2, 2048
+    tokens = torch.randint(10, min(31000, vocab), (rows, seq), generator=gen, device=device)
+    bits = _q4_bits(base)
+    with torch.no_grad():
+        bare_loss = lm_loss(base, tokens, None)
+    log(f"[qlora] DreamLLM-7B int4 decoder ({_nbytes(base) / 2**30:.3f} GiB), adapter rank "
+        f"{lcfg.rank}, alpha {lcfg.alpha}, targets {list(lcfg.targets)}: {n_factors} float32 "
+        f"factor elements, {n_8bit} of {len(list(tree_leaves(lora)))} factor leaves with 8-bit "
+        f"moments")
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        lora, opt_state, loss = step(lora, opt_state, tokens)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+    train_launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if losses[0] != float(bare_loss):
+        raise AssertionError(f"[qlora] step 1 loss {losses[0]!r} != the bare base's "
+                             f"{float(bare_loss)!r}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[qlora] losses {losses}")
+    if not all(bool(f["b"].any()) for layer in lora["layers"] for f in layer.values()):
+        raise AssertionError("[qlora] a b factor is still zero after the steps")
+    if any(not (torch.equal(p, q) and torch.equal(s, r))
+           for (p, s), (q, r) in zip(bits, _q4_bits(base))):
+        raise AssertionError("[qlora] the int4 base changed")
+    # a step: remat reruns each layer's forward in the backward (K1 twice a
+    # layer, K2 once); K4 once a factor leaf of min_8bit_size elements or
+    # more (at 7B every factor: 2 x 4 targets x 32 layers); the 2 x 2048
+    # rows take the dequantize product, never K3
+    big = sum(t.numel() >= ocfg.min_8bit_size for t in tree_leaves(lora))
+    want = {"flash_fwd": steps * 2 * layers, "flash_bwd": steps * layers,
+            "adam8bit": steps * big, "w4a16": 0}
+    if train_launches != want or n_8bit != big:
+        raise AssertionError(f"[qlora] launches over {steps} steps {train_launches}, want {want} "
+                             f"({n_8bit} 8-bit factor leaves)")
+    ntok = rows * seq
+    log(f"[qlora] {steps} steps at batch {rows} x {seq}: step seconds "
+        f"{[round(x, 3) for x in step_s]} (the first includes first use); tokens/s "
+        f"{ntok / min(step_s):.1f} at the fastest step ({ntok * (steps - 1) / sum(step_s[1:]):.1f}"
+        f" over steps 2-{steps}); peak memory {peak / 2**30:.2f} GiB")
+    log(f"[qlora] loss {[round(x, 5) for x in losses]}; step 1 == the bare int4 base's loss "
+        f"{float(bare_loss)!r} bit for bit; every b nonzero; the int4 base unchanged; launches a "
+        f"step {({k: v // steps for k, v in train_launches.items()})}")
+    if profile_dir:
+        box = [lora, opt_state]
+
+        def one_step():
+            box[0], box[1], _ = step(box[0], box[1], tokens)
+
+        undo = _dequant_ranges()
+        try:
+            _profile(one_step, "qlora_step", profile_dir, trace=False, top=16,
+                     ranges=("int4_product_fwd", "int4_product_bwd"))
+        finally:
+            undo()
+        lora, opt_state = box
+    del opt_state, tx
+
+    # -- serving the adapter ---------------------------------------------------
+    served = attach_lora(base, lora, lcfg)
+    zero_b = attach_lora(base, {"layers": [{t: {"a": f["a"], "b": torch.zeros_like(f["b"])}
+                                             for t, f in layer.items()}
+                                            for layer in lora["layers"]]}, lcfg)
+    s_prompt, new = 128, 128
+    ids = torch.randint(10, min(31000, vocab), (8, s_prompt), generator=gen, device=device)
+    lens = torch.full((8,), s_prompt, dtype=torch.int32, device=device)
+    _zero_launch_counts()
+    gen_steps = 0
+    step_ms = {}
+
+    def greedy(params, b, n_new):
+        out = generate_text(params, cfg, ids[:b], lens[:b],
+                            SamplingConfig(greedy=True, max_new_tokens=n_new, eos_token_id=-1),
+                            device=device)
+        if out["steps"] != n_new or not bool((out["lengths"] == n_new).all()):
+            raise AssertionError(f"[qlora-serve] generate_text: steps {out['steps']}")
+        return out
+
+    # in turns (bare, attached, attached, bare): the host's speed drifts
+    for b in (1, 8):
+        for label, params in (("bare int4", base), ("attached", served), ("attached", served),
+                              ("bare int4", base)):
+            secs = {}
+            for n_new in (1, new):
+                sync()
+                t = time.perf_counter()
+                out = greedy(params, b, n_new)
+                sync()
+                secs[n_new] = time.perf_counter() - t
+                gen_steps += out["steps"]
+            ms = (secs[new] - secs[1]) / (new - 1) * 1e3
+            step_ms.setdefault((label, b), []).append(ms)
+            log(f"[qlora-serve] generate_text {label} B{b}: {secs[new]:.3f} s for {b} x {new} "
+                f"tokens; decode {ms:.2f} ms a step ({b * 1e3 / ms:.1f} tokens/s)")
+    step_ms = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    zero_toks, bare_toks = greedy(zero_b, 8, 32)["tokens"], greedy(base, 8, 32)["tokens"]
+    gen_steps += 64
+    if not torch.equal(zero_toks, bare_toks):
+        raise AssertionError("[qlora-serve] a zero-b adapter changed the bare base's tokens")
+    gen_launches = _launch_counts()
+    if gen_launches != {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0,
+                        "w4a16": 7 * layers * gen_steps}:
+        raise AssertionError(f"[qlora-serve] launches {gen_launches}, want w4a16 = "
+                             f"{7 * layers} x {gen_steps} decode forwards and nothing else")
+    log(f"[qlora-serve] attached decode ms a step / bare int4 (means of two runs each): B1 "
+        f"{step_ms['attached', 1] / step_ms['bare int4', 1]:.3f}x, B8 "
+        f"{step_ms['attached', 8] / step_ms['bare int4', 8]:.3f}x; a zero-b adapter gives the "
+        f"bare base's tokens at batch 8 (32 tokens a row); w4a16 launches "
+        f"{gen_launches['w4a16']} = {7 * layers} x {gen_steps} decode forwards")
+
+    # one decode step's logits over the attached tree, kernel against plain version
+    cache = init_kv_cache(cfg, 8, s_prompt + 1, device=device)
+    with torch.no_grad():
+        llama_forward(served, cfg, input_ids=ids, kv_cache=cache)
+        tok = torch.randint(10, min(31000, vocab), (8, 1), generator=gen, device=device)
+        snap = {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+
+        def one_decode(params=served):
+            c = {k: v.clone() if torch.is_tensor(v) else v for k, v in snap.items()}
+            o = llama_forward(params, cfg, input_ids=tok, kv_cache=c)
+            return llama_logits(params, cfg, o["last_hidden_state"])[:, 0]
+
+        got = one_decode()
+        if profile_dir:
+            _profile(one_decode, "qlora_attached_decode_step_b8", profile_dir, top=12)
+            _profile(lambda: one_decode(base), "int4_unfused_decode_step_b8", profile_dir,
+                     top=12)
+        kernel = quant4.w4_matmul_cuda
+        quant4.w4_matmul_cuda = lambda x, t: quant4.w4_matmul_reference(x, t)  # noqa: E731
+        try:
+            want_logits = one_decode()
+        finally:
+            quant4.w4_matmul_cuda = kernel
+        rel = ((got - want_logits).norm() / want_logits.norm()).item()
+        if not math.isfinite(rel) or rel > W4_STEP_REL_RMS:
+            raise AssertionError(f"[qlora-serve] attached decode-step logits, kernel vs plain: "
+                                 f"relative RMS {rel} > {W4_STEP_REL_RMS}")
+        log(f"[qlora-serve] one attached decode step's logits, kernel vs plain version: relative "
+            f"RMS {rel:.3e} (limit {W4_STEP_REL_RMS})")
+    del cache, snap
+
+    # -- the engine with the prompt-prefix cache ------------------------------
+    hgen = torch.Generator().manual_seed(5)
+    systems = [[1] + torch.randint(10, min(31000, vocab), (511,), generator=hgen).tolist()
+               for _ in range(2)]
+    tails = torch.randint(16, 201, (16,), generator=hgen).tolist()
+    news = torch.randint(64, 129, (16,), generator=hgen).tolist()
+    reqs = [systems[i % 2] + torch.randint(10, min(31000, vocab), (n,), generator=hgen).tolist()
+            for i, n in enumerate(tails)]
+    scfg = SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=-1, pad_token_id=0)
+
+    def serve_all(entries):
+        eng = ContinuousBatchingEngine(
+            served, cfg, scfg, EngineConfig(slots=8, prefill_len=512, max_len=1024,
+                                            chunk_steps=16, cache_dtype="bfloat16",
+                                            bos_token_id=1, prefix_cache_entries=entries),
+            device=device).warmup(embeds=True).start()
+        try:
+            t = time.perf_counter()
+            with cf.ThreadPoolExecutor(16) as ex:
+                futs = [ex.submit(eng.submit, r, max_new_tokens=k, timeout=900)
+                        for r, k in zip(reqs, news)]
+                answers = [f.result(timeout=900) for f in futs]
+            secs = time.perf_counter() - t
+        finally:
+            eng.stop()
+        if any(len(a) != k or not all(0 <= x < vocab for x in a) for a, k in zip(answers, news)):
+            raise AssertionError(f"[qlora-engine] answers of lengths {[len(a) for a in answers]}")
+        return eng, answers, secs
+
+    _zero_launch_counts()
+    # in turns (off, on, on, off), each a fresh engine: the two settings
+    # differ by 14 prefills of one chunk, less than the walls' spread
+    secs = {0: [], 2: []}
+    engine_steps, first = 0, None
+    for entries in (0, 2, 2, 0):
+        eng, answers, wall = serve_all(entries)
+        secs[entries].append(wall)
+        engine_steps += eng.decode_steps
+        first = first or answers
+        if entries and (eng.prefix_hits, eng.prefix_misses) != (14, 2):
+            raise AssertionError(f"[qlora-engine] prefix hits {eng.prefix_hits}, misses "
+                                 f"{eng.prefix_misses}; want 14 and 2")
+        if answers != first:
+            bad = [i for i, (a, b) in enumerate(zip(answers, first)) if a != b]
+            raise AssertionError(f"[qlora-engine] requests {bad} answer differently with "
+                                 f"prefix_cache_entries={entries}")
+        if entries:
+            eng_on = eng
+        else:
+            eng_off = eng
+        del eng
+    # embeddings prompts against ids prompts, on the engine without the cache
+    eng_off_steps = eng_off.decode_steps
+    eng_off.start()
+    try:
+        for n in (100, 700):
+            p = [1] + torch.randint(10, min(31000, vocab), (n - 1,), generator=hgen).tolist()
+            by_ids = eng_off.submit(p, max_new_tokens=32, timeout=900)
+            emb = served["embed_tokens"][torch.tensor(p, device=device)]
+            if eng_off.submit(prompt_embeds=emb, max_new_tokens=32, timeout=900) != by_ids:
+                raise AssertionError(f"[qlora-engine] a {n}-token embeddings prompt answers "
+                                     f"unlike its ids")
+    finally:
+        eng_off.stop()
+    n_gen = sum(news)
+    log(f"[qlora-engine] serve.py's defaults (8 slots, prefill 512, max_len 1024, chunk 16, bf16 "
+        f"cache) over the attached tree: 16 requests under two 512-token system prompts, tails "
+        f"{min(tails)}-{max(tails)} tokens, {n_gen} tokens generated; in turns off, on, on, off: "
+        f"prefix cache off {[round(x, 3) for x in secs[0]]} s "
+        f"({[round(n_gen / x, 1) for x in secs[0]]} tokens/s), on "
+        f"{[round(x, 3) for x in secs[2]]} s ({[round(n_gen / x, 1) for x in secs[2]]} "
+        f"tokens/s); hits 14, misses 2 each time the cache is on; every answer equal in all "
+        f"four runs; embeddings prompts of 100 and 700 tokens equal their ids prompts")
+    engine_steps += eng_off.decode_steps - eng_off_steps
+    del eng_off
+
+    # -- HTTP, as projects/dreamllm/serve.py builds its server ----------------
+    tok = ToyTokenizer(vocab_size=vocab)
+    with torch.no_grad():
+        chat_params = {"llm": served, "clip_vision_embedding": {
+            "clip": init_clip_vision_params(dcfg.vision, generator=gen, device=device),
+            "projector": init_projector_params(dcfg.projector_cfg(), generator=gen,
+                                               device=device)}}
+    steps_before = eng_on.decode_steps
+    chat_fn = make_chat_fn(chat_params, dcfg, tok, engine=eng_on, device=device)
+    server = ModelServer(
+        logprob_fn=lambda ctx, conts: choice_logprobs(served, cfg, tok, ctx, list(conts)),
+        host="127.0.0.1", port=0, engine=eng_on, tokenizer=tok, chat_fn=chat_fn).start()
+    walls = {}
+    try:
+        client = OnlineClient(f"http://127.0.0.1:{server.port}", timeout=900)
+        t = time.perf_counter()
+        if not client.healthy():
+            raise AssertionError("[qlora-http] /health did not answer ok")
+        walls["health"] = time.perf_counter() - t
+        system_text = " ".join(f"w{i}" for i in range(300))
+        prompts = [f"{system_text} question {i} " + " ".join(f"q{i}x{j}" for j in range(i + 3))
+                   for i in range(16)]
+        t = time.perf_counter()
+        with cf.ThreadPoolExecutor(16) as ex:
+            texts = list(ex.map(lambda p: client.generate(p, max_new_tokens=64), prompts,
+                                timeout=900))
+        walls["generate x16"] = time.perf_counter() - t
+        if any(len(x.split()) != 64 for x in texts):
+            raise AssertionError(f"[qlora-http] /generate words {[len(x.split()) for x in texts]}")
+        t = time.perf_counter()
+        streamed = "".join(client.generate_stream(prompts[3], max_new_tokens=64))
+        walls["generate stream"] = time.perf_counter() - t
+        if streamed != texts[3]:
+            raise AssertionError("[qlora-http] the streamed text differs from /generate's")
+        t = time.perf_counter()
+        lps = client.logprob("the answer to the question is", [" yes", " no, it is not"])
+        walls["logprob"] = time.perf_counter() - t
+        if len(lps) != 2 or not all(math.isfinite(x) for x in lps):
+            raise AssertionError(f"[qlora-http] /logprob {lps}")
+        image = (torch.rand((224, 224, 3), generator=gen, device=device) * 255).byte().cpu()
+        t = time.perf_counter()
+        out = client.chat([{"role": "user", "content": "<image>\nDescribe this image."}],
+                          images=[image.numpy()], max_new_tokens=64)
+        walls["chat"] = time.perf_counter() - t
+        if not out["text"].strip() or out["images"]:
+            raise AssertionError(f"[qlora-http] /chat {out}")
+    finally:
+        server.stop()
+    http_steps = eng_on.decode_steps - steps_before
+    serve_launches = _launch_counts()
+    want = {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0,
+            "w4a16": 7 * layers * (engine_steps + http_steps)}
+    if serve_launches != want:
+        raise AssertionError(f"[qlora-http] launches over the engines and HTTP {serve_launches}, "
+                             f"want {want}")
+    log(f"[qlora-http] ModelServer on 127.0.0.1:{server.port} (engine with the prefix cache, "
+        f"/logprob by choice_logprobs, /chat through the engine's embeddings lanes): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; /logprob {[round(x, 3) for x in lps]}; chat answered {len(out['text'].split())} "
+        f"words; w4a16 launches over the engines and HTTP {serve_launches['w4a16']} = "
+        f"{7 * layers} x {engine_steps + http_steps} decode forwards")
+    return train_launches, {k: v + serve_launches[k] for k, v in gen_launches.items()}
+
+
+def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8,
+             ranges: tuple = ()) -> None:
     """Wall time of ``fn`` (synchronised, unprofiled), then one profiled run:
     device time summed over the CUDA kernels, the busy share, the top
-    kernels, and (``trace``) a Chrome trace under ``out_dir``."""
+    kernels, and (``trace``) a Chrome trace under ``out_dir``. ``ranges``:
+    names of ``record_function`` ranges inside ``fn``; each one's kernel time
+    (summed over the kernels launched inside it) and share of the device
+    time are logged, and its device-side annotation is not counted as a
+    kernel."""
     import os
 
     from torch.autograd import DeviceType
@@ -1749,10 +2354,16 @@ def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8) -> 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms "
         f"(busy {dev_ms / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches")
+    for e in prof.key_averages():
+        if e.key in ranges and e.device_type == DeviceType.CPU:
+            ms = e.device_time_total / 1e3
+            log(f"[profile] {label}: range {e.key} x{e.count}: kernels {ms:.3f} ms "
+                f"({ms / max(dev_ms, 1e-9):.1%} of the device time)")
     for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:top]:
         log(f"[profile] {label}:   {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
@@ -1808,7 +2419,9 @@ def _leaves(tree):
 # path as (shape-name prefix, launches per unit of work)). flash_fwd keeps the
 # serving mix (one UNet forward: 5 launches at each level); flash_bwd and
 # adam8bit take one train step's (the UNet's first 64x64 site needs no
-# backward, see phase_train); w4a16 one fused int4 decode step's.
+# backward, see phase_train); w4a16 one fused int4 decode step's. The QLoRA
+# paths' launches (flash_fwd, flash_bwd and adam8bit on its float32 factors
+# in training, w4a16 in serving) stand in ``launches_by_path``.
 KERNELS = {
     "flash_fwd": ("dreamllm_tpu_torch/csrc/flash_fwd.cu", "dreamllm_tpu/ops/attention.py:133",
                   (("unet64x64", 5), ("unet32x32", 5))),
@@ -1870,6 +2483,7 @@ def main() -> int:
         phase_small_reference()
         phase_small_train()
         phase_small_quant()
+        phase_small_qlora()
         launches["serving"], model = phase_main(args.profile)
         launches["t2i"], launches["t2i_deepcache2"] = phase_t2i(model)
         launches["serving_deepcache2"] = phase_document_dc2(model)
@@ -1878,7 +2492,11 @@ def main() -> int:
         launches["training"] = phase_train(model, args.profile)
         del model
         torch.cuda.empty_cache()
-        launches["quantized_serving"] = phase_serve_int4(args.profile)
+        launches["quantized_serving"], int4_base = phase_serve_int4(args.profile)
+        torch.cuda.empty_cache()
+        launches["qlora_training"], launches["qlora_serving"] = phase_qlora(int4_base,
+                                                                            args.profile)
+        del int4_base
     log(line)
     print(json.dumps(kernel_line(checks, launches)))
     print(json.dumps({"ok": True, "device": {

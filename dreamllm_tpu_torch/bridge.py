@@ -16,7 +16,13 @@ taken from the JAX package (``jax.tree.map(np.asarray, params)``):
   :class:`~dreamllm_tpu_torch.ops.quant4.Q4Tensor` or
   :class:`~dreamllm_tpu_torch.ops.quant.QTensor` of ``like`` field by
   field; a stacked ``[L, K/2, N]`` packed leaf gives one 2-D ``Q4Tensor`` a
-  layer.
+  layer;
+* an attached LoRA weight (the JAX package's ``LoRATensor`` with ``base``,
+  ``a``, ``b`` and ``scale``) fills a
+  :class:`~dreamllm_tpu_torch.ops.quant.LoRATensor`: its base as any other
+  weight (raw or quantized), its stacked ``scale [L]`` one 0-d tensor a
+  layer. A LoRA factor tree (``{"layers": {t: {"a": [L, in, r], "b": [L, r,
+  out]}}}``) is a plain tree and crosses as one, one pair a layer.
 
 Every leaf is cast to the dtype of its counterpart in ``like``. A leaf of
 ``like`` that ``tree`` lacks, a shape that disagrees, and a leaf of ``tree``
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from dreamllm_tpu_torch.device import resolve_device
-from dreamllm_tpu_torch.ops.quant import QTensor
+from dreamllm_tpu_torch.ops.quant import LoRATensor, QTensor
 from dreamllm_tpu_torch.ops.quant4 import Q4Tensor
 
 Path = tuple
@@ -46,6 +52,14 @@ Path = tuple
 # quantized weight types of the port -> their tensor fields, which the JAX
 # package's classes of the same names carry too
 _QUANT_FIELDS = {Q4Tensor: ("packed", "scale"), QTensor: ("q", "scale")}
+# the fields of an attached LoRA weight, in the port's and the JAX package's
+# LoRATensor alike
+_LORA_FIELDS = ("base", "a", "b", "scale")
+
+
+def _is_lora(node) -> bool:
+    return (all(hasattr(node, f) for f in _LORA_FIELDS)
+            and not isinstance(node, (dict, list, tuple)))
 
 
 def _quant_fields(node):
@@ -111,6 +125,13 @@ def _convert(node, like, jpath: Path, index, stack_len, used, dev):
             raise ValueError(f"{_fmt(jpath)}: a layer stack inside a layer stack")
         # layer stack: leaf [L, ...] in JAX -> one dict per layer in the port
         return [_convert(node, s, jpath, i, len(like), used, dev) for i, s in enumerate(like)]
+    if isinstance(like, LoRATensor):
+        if not _is_lora(node):
+            raise TypeError(f"{_fmt(jpath)}: the port holds a LoRATensor here, the JAX tree a "
+                            f"{type(node).__name__}")
+        base = _convert(node.base, like.base, jpath + ("base",), index, stack_len, used, dev)
+        return LoRATensor(base, *(_leaf(getattr(node, f), getattr(like, f), jpath + (f,), index,
+                                        stack_len, used, dev) for f in _LORA_FIELDS[1:]))
     if type(like) in _QUANT_FIELDS:
         fields = _QUANT_FIELDS[type(like)]
         if _quant_fields(node) != fields:
@@ -125,7 +146,11 @@ def _convert(node, like, jpath: Path, index, stack_len, used, dev):
 
 def _jax_leaves(node, path: Path = ()):
     fields = _quant_fields(node)
-    if fields is not None:
+    if _is_lora(node):
+        yield from _jax_leaves(node.base, path + ("base",))
+        for f in _LORA_FIELDS[1:]:
+            yield path + (f,), getattr(node, f)
+    elif fields is not None:
         for f in fields:
             yield path + (f,), getattr(node, f)
     elif isinstance(node, dict):

@@ -25,7 +25,11 @@ from dreamllm_tpu_torch.generation.sampler import (
     generate_text,
     validate_sampling,
 )
-from dreamllm_tpu_torch.generation.stopping import stops_for_template, truncate_at_stop
+from dreamllm_tpu_torch.generation.stopping import (
+    make_stop_fn,
+    stops_for_template,
+    truncate_at_stop,
+)
 from dreamllm_tpu_torch.models.clip import clip_preprocess
 from dreamllm_tpu_torch.models.dreamllm import DreamLLMConfig, multimodal_embed
 from dreamllm_tpu_torch.utils.errors import ClientError
@@ -160,13 +164,22 @@ def make_chat_fn(
     template's stop strings: a single-token separator halts the decode as
     EOS does, and the text is cut at the first stop string.
 
-    ``engine=`` (routing decode through the continuous-batching engine's
-    embeddings lanes) raises: the engine's embeddings prefill is not ported
-    (ROADMAP #16, ``serve/engine.py``)."""
-    if engine is not None:
-        raise NotImplementedError("make_chat_fn(engine=...): the engine's embeddings prefill "
-                                  "waits for ROADMAP #16")
+    ``engine=`` routes decode through a ``ContinuousBatchingEngine``:
+    text-only turns as token prompts (``submit(ids)``, which keeps the
+    prefix cache), turns with images through its embeddings lanes
+    (``submit(prompt_embeds=)``, the spliced embeddings computed here on
+    the card). Concurrent chat requests then decode together instead of one
+    at a time under the server's lock: the function is marked
+    ``concurrent``. The engine must serve the decoder of ``params["llm"]``
+    (an attached or quantized copy of it). It is warmed up here, the
+    embeddings prefill included, unless it is already running. Text out
+    only: ``head_params`` with ``engine=`` raises."""
+    if engine is not None and head_params is not None:
+        raise ValueError("engine-routed chat is text-out only; image output (head_params) "
+                         "requires the locked interleaved path")
     dev = resolve_device(device)
+    if engine is not None and not engine.running:
+        engine.warmup(embeds=True)
 
     def chat_fn(messages, images, req: dict) -> dict:
         msgs = [m if isinstance(m, Message) else Message(m["role"], m.get("content", ""))
@@ -186,6 +199,23 @@ def make_chat_fn(
             raise ClientError(f"unknown template {tmpl!r}; available: {sorted(TEMPLATES)}")
         stop_strings, halt_ids = stops_for_template(TEMPLATES[tmpl], tokenizer,
                                                     eos_id=cfg.special_tokens.eos)
+        if engine is not None:
+            ids, pix, pos = encode_chat_prompt(tokenizer, cfg, msgs, images, tmpl, device=dev)
+            kw = dict(max_new_tokens=mnt, greedy=greedy, temperature=temperature, top_k=top_k,
+                      top_p=top_p, seed=int(req["seed"]) if "seed" in req else None,
+                      stop_token_ids=halt_ids,
+                      stop_fn=make_stop_fn(tokenizer, stop_strings, exclude_ids=halt_ids))
+            if pix is None:
+                # text-only turns ride the token lanes (and the prefix cache)
+                out_ids = engine.submit(ids[0].tolist(), **kw)
+            else:
+                with torch.no_grad():
+                    embeds = multimodal_embed(params, cfg, ids, images=pix, image_positions=pos)
+                out_ids = engine.submit(prompt_embeds=embeds[0], **kw)
+            text = tokenizer.decode(out_ids)
+            if stop_strings:
+                text = truncate_at_stop(text, stop_strings)
+            return {"text": text, "images": []}
         scfg = SamplingConfig(greedy=greedy, temperature=temperature, top_k=top_k, top_p=top_p,
                               max_new_tokens=mnt, eos_token_id=cfg.special_tokens.eos,
                               halt_tokens=halt_ids)
@@ -197,4 +227,6 @@ def make_chat_fn(
             out = dict(out, text=truncate_at_stop(out["text"], stop_strings))
         return out
 
+    # the engine orders device work itself; handler threads may enter together
+    chat_fn.concurrent = engine is not None
     return chat_fn

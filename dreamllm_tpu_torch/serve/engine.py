@@ -27,9 +27,19 @@ draws each token from a ``torch.Generator`` seeded from (request seed,
 sample index) only, so its output does not depend on its slot or its
 co-tenants (JAX keeps the property through ``_stream_key``).
 
-Not in this module yet (ROADMAP #15/#16): per-slot speculative decoding,
-the prompt-prefix KV cache and prompt-embeddings prefill raise
-``NotImplementedError``.
+Two admission paths sit beside the token prompt:
+
+  * the prompt-prefix KV cache (``EngineConfig.prefix_cache_entries``): an
+    LRU of lane-size prefill caches keyed by the token tuple of a prompt's
+    full-chunk prefix. A request whose prompt shares a chunk-aligned prefix
+    with an entry starts its prefill after it (the K/V rows of a prefix do
+    not depend on what follows), and stays token-identical;
+  * embeddings prompts (``submit(prompt_embeds=)``): pre-spliced input
+    embeddings (image features from ``multimodal_embed``) prefill through
+    the same chunks and then decode as any other lane.
+
+Per-slot speculative decoding (``speculative_k > 0``) is not in this module
+yet (ROADMAP #15) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +47,10 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Callable
 
+import numpy as np
 import torch
 
 from dreamllm_tpu_torch.device import resolve_device
@@ -54,6 +65,7 @@ from dreamllm_tpu_torch.models.llama import (
     llama_forward,
     llama_logits,
 )
+from dreamllm_tpu_torch.serve.batching import left_truncate_keep_bos
 from dreamllm_tpu_torch.utils.errors import ClientError
 from dreamllm_tpu_torch.utils.logging import get_logger
 
@@ -79,16 +91,6 @@ def stream_generator(seed: int, idx: int, device) -> torch.Generator:
     return g
 
 
-def left_truncate_keep_bos(ids: list[int], cap: int, bos_token_id: int | None) -> list[int]:
-    """Left-truncate an overlong prompt to ``cap`` tokens, keeping BOS at
-    position 0 when it is there (a copy of the JAX package's rule in
-    ``serve/batching.py``)."""
-    if len(ids) <= cap:
-        return list(ids)
-    head = [ids[0]] if bos_token_id is not None and ids and ids[0] == bos_token_id else []
-    return head + list(ids[-(cap - len(head)):])
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     slots: int = 8              # concurrent cache lanes
@@ -102,7 +104,12 @@ class EngineConfig:
     # pass up to this many stop_token_ids; they halt the lane WITHOUT being
     # emitted (EOS semantics)
     max_stop_tokens: int = 4
-    prefix_cache_entries: int = 0   # the prompt-prefix KV cache: ROADMAP #16
+    # LRU prompt-prefix KV cache (0 = off). Requests sharing a token-exact
+    # prefix of >= prefill_len tokens (a chat system prompt, a few-shot
+    # header) skip the prefill of the cached full chunks. Each entry holds
+    # one lane-size KV copy on the card (7B bf16 at max_len 1024: 0.5 GiB),
+    # so size it to the number of distinct system prompts.
+    prefix_cache_entries: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -135,14 +142,12 @@ def init_engine_state(llm_cfg: LlamaConfig, ecfg: EngineConfig, *, device="cuda"
 def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConfig, *,
                     device="cuda"):
     """Build ``(prefill_chunk_fn, insert_fn, decode_chunk_fn)``, the
-    counterparts of JAX's three compiled programs, as eager functions that
-    update the state in place."""
+    counterparts of JAX's compiled programs, as eager functions that update
+    the state in place. ``prefill_chunk_fn.embeds`` is the embeddings-prompt
+    twin of the prefill (JAX's ``prefill_embeds_chunk_fn``)."""
     if ecfg.speculative_k:
         raise NotImplementedError("speculative_k > 0: per-slot speculative decoding waits for "
                                   "ROADMAP #15")
-    if ecfg.prefix_cache_entries:
-        raise NotImplementedError("prefix_cache_entries > 0: the prompt-prefix KV cache waits "
-                                  "for ROADMAP #16")
     P, S, K = ecfg.prefill_len, ecfg.max_len, ecfg.chunk_steps
     if S % P != 0:
         # the final prefill chunk writes a full P-row slice at its start
@@ -176,16 +181,27 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
             torch.full((1,), samp["top_k"], device=dev),
             torch.full((1,), samp["top_p"], device=dev), [gen])
 
+    def _prefill(params, cache, clen: int, start: int, samp, **inp):
+        seg = (arange_p < clen).to(torch.int32)
+        cache["index"] = start
+        out = llama_forward(params, llm_cfg, segment_ids=seg,
+                            positions=torch.where(seg == 1, arange_p + start, 0), kv_cache=cache,
+                            **inp)
+        last = out["last_hidden_state"][:, max(clen - 1, 0)][:, None]
+        return out["kv_cache"], _first_token(llama_logits(params, llm_cfg, last)[:, 0], samp)
+
     def prefill_chunk_fn(params, cache, ids, clen: int, start: int, samp):
         """Append ONE P-token chunk (right-padded, ``clen`` real) at offset
         ``start``. Returns (cache, first token ``[1]``), the token meaningful
         only on the final chunk."""
-        seg = (arange_p < clen).to(torch.int32)
-        cache["index"] = start
-        out = llama_forward(params, llm_cfg, input_ids=ids, segment_ids=seg,
-                            positions=torch.where(seg == 1, arange_p + start, 0), kv_cache=cache)
-        last = out["last_hidden_state"][:, max(clen - 1, 0)][:, None]
-        return out["kv_cache"], _first_token(llama_logits(params, llm_cfg, last)[:, 0], samp)
+        return _prefill(params, cache, clen, start, samp, input_ids=ids)
+
+    def prefill_embeds_chunk_fn(params, cache, embeds, clen: int, start: int, samp):
+        """:func:`prefill_chunk_fn` for a chunk of input embeddings ``[1, P,
+        H]`` (zero-padded): a multimodal prompt's spliced embeddings prefill
+        through the same lanes; decode after it is token-driven."""
+        return _prefill(params, cache, clen, start, samp,
+                        inputs_embeds=embeds.to(llm_cfg.dtype))
 
     def insert_fn(state, pre_cache, plen: int, slot: int, first_tok, budget: int, samp, halt):
         """Claim lane ``slot``: copy the prefilled K/V, reset the lane's
@@ -260,7 +276,13 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
                 active.to(torch.int32))
 
     prefill_chunk_fn.empty_cache = empty_prefill_cache
+    prefill_chunk_fn.embeds = prefill_embeds_chunk_fn
     return prefill_chunk_fn, insert_fn, decode_chunk_fn
+
+
+def _clone_cache(cache: dict) -> dict:
+    """A copy of a prefill cache's tensors (``index`` is set per chunk)."""
+    return {name: t.clone() for name, t in cache.items() if torch.is_tensor(t)}
 
 
 # ---------------------------------------------------------------------------
@@ -269,11 +291,13 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
 
 
 class _Request:
-    __slots__ = ("ids", "max_new_tokens", "tokens", "done", "slot", "stream", "error",
+    __slots__ = ("ids", "embeds", "max_new_tokens", "tokens", "done", "slot", "stream", "error",
                  "chunk_joined", "chunk_last", "samp", "abandoned", "stop_ids", "stop_fn")
 
-    def __init__(self, ids, max_new_tokens, stream=None, samp=None, stop_ids=(), stop_fn=None):
+    def __init__(self, ids, max_new_tokens, stream=None, samp=None, embeds=None, stop_ids=(),
+                 stop_fn=None):
         self.ids = ids
+        self.embeds = embeds  # [S, H] on the engine's device, or None (an ids prompt)
         self.abandoned = False  # submitter timed out; skip at admission
         self.stop_ids = tuple(stop_ids)  # single-token stops (device-side)
         # host-side stop predicate over the accumulated ids, checked at
@@ -349,6 +373,13 @@ class ContinuousBatchingEngine:
         self.decode_steps = 0  # decode forwards run, warmup included
         self.active_history: deque[int] = deque(maxlen=4096)
         self._admit_count = 0
+        # prompt-prefix KV cache: token tuple -> lane-size copy of the
+        # prefill cache after that prefix (scheduler thread only). Entries
+        # are clones: the shared prefill buffer that later prompts fill
+        # never aliases one.
+        self._prefix_cache: OrderedDict[tuple, dict] = OrderedDict()
+        self.prefix_hits = 0
+        self.prefix_misses = 0
 
     # -- public API --------------------------------------------------------
 
@@ -365,17 +396,26 @@ class ContinuousBatchingEngine:
         return self._thread is not None and self._thread.is_alive()
 
     @torch.no_grad()
-    def warmup(self) -> "ContinuousBatchingEngine":
+    def warmup(self, embeds: bool = False) -> "ContinuousBatchingEngine":
         """Run each function once on scratch / idle state before serving, so
         that the first request does not pay one-time costs (the kernels'
         build at their first launch, the allocator's first blocks) while
-        live lanes wait. Lane 0 is inserted with budget 0, i.e. inactive.
-        Must run before :meth:`start`."""
+        live lanes wait; with the prefix cache, one entry's copy as well,
+        and with ``embeds`` the embeddings prefill. Lane 0 is inserted with
+        budget 0, i.e. inactive. Must run before :meth:`start`."""
         if self.running:
             raise RuntimeError("warmup() must run before start()")
         samp = {"greedy": True, "temperature": 1.0, "top_k": 0, "top_p": 1.0, "seed": 0}
-        ids = torch.zeros((1, self.ecfg.prefill_len), dtype=torch.long, device=self.device)
+        P = self.ecfg.prefill_len
+        if embeds:
+            emb = torch.zeros((1, P, self.llm_cfg.hidden_size), dtype=self.llm_cfg.dtype,
+                              device=self.device)
+            self.prefill_fn.embeds(self.params, self.prefill_fn.empty_cache(), emb, 1, 0, samp)
+        ids = torch.zeros((1, P), dtype=torch.long, device=self.device)
         pre, first = self.prefill_fn(self.params, self.prefill_fn.empty_cache(), ids, 1, 0, samp)
+        if self.ecfg.prefix_cache_entries:
+            # the allocation of an entry's copy, before serving
+            _clone_cache(pre)
         halt = torch.full((self.ecfg.max_stop_tokens,), -1, dtype=torch.int32, device=self.device)
         self.state = self.insert_fn(self.state, pre, 1, 0, first, 0, samp, halt)
         out = self.decode_chunk_fn(self.params, self.state)
@@ -465,6 +505,13 @@ class ContinuousBatchingEngine:
         (EOS excluded). Prompts prefill in chunks; one longer than the lane
         (``max_len - 1``) is truncated from the LEFT, BOS kept.
 
+        ``prompt_embeds`` (``[S, H]``, a tensor or an array, instead of
+        ``prompt_ids``) serves a multimodal prompt: embeddings spliced by
+        ``multimodal_embed`` prefill through the embeddings chunks and then
+        decode as any other lane. They are cast to the model's dtype, moved
+        to the engine's device, never truncated (a prompt longer than the
+        lane raises :class:`ClientError`) and bypass the prefix cache.
+
         ``greedy``/``temperature``/``top_k``/``top_p`` override the engine's
         SamplingConfig for this request only; passing any of the last three
         implies ``greedy=False`` unless ``greedy`` is given. ``seed`` pins
@@ -473,9 +520,6 @@ class ContinuousBatchingEngine:
         lane without emitting the token; ``stop_fn`` is a host predicate
         over the accumulated ids, checked at chunk boundaries. An error of
         the engine's thread (a kernel that fails, say) is raised here."""
-        if prompt_embeds is not None:
-            raise NotImplementedError("prompt_embeds: the engine's embeddings prefill waits for "
-                                      "ROADMAP #16")
         s = self.scfg
         if greedy is None:
             greedy = s.greedy if temperature is None and top_k is None and top_p is None else False
@@ -487,10 +531,30 @@ class ContinuousBatchingEngine:
             "seed": None if seed is None else int(seed) & 0xFFFFFFFF,
         }
         validate_sampling(samp["temperature"], samp["top_k"], samp["top_p"])
-        req = _Request(list(prompt_ids or []), max_new_tokens, stream, samp,
-                       stop_ids=stop_token_ids, stop_fn=stop_fn)
-        if not req.ids:
-            raise ClientError("empty prompt (prepend a BOS token)")
+        if prompt_embeds is not None:
+            if prompt_ids is not None:
+                raise ValueError("pass prompt_ids OR prompt_embeds, not both")
+            embeds = (prompt_embeds if torch.is_tensor(prompt_embeds)
+                      else torch.as_tensor(np.asarray(prompt_embeds)))
+            if embeds.ndim != 2 or embeds.shape[0] < 1:
+                raise ClientError(f"prompt_embeds must be [S>=1, H], got {tuple(embeds.shape)}")
+            if embeds.shape[1] != self.llm_cfg.hidden_size:
+                raise ClientError(f"prompt_embeds hidden dim {embeds.shape[1]} != model "
+                                  f"hidden_size {self.llm_cfg.hidden_size}")
+            if embeds.shape[0] > self.ecfg.max_len - 1:
+                # an ids prompt left-truncates, but an embeddings prompt's spans
+                # (image patches) are opaque here: a cut could halve an image
+                raise ClientError(f"prompt_embeds length {embeds.shape[0]} exceeds the lane "
+                                  f"capacity {self.ecfg.max_len - 1}; shorten the prompt "
+                                  "(embeddings prompts are not truncated)")
+            embeds = embeds.to(device=self.device, dtype=self.llm_cfg.dtype)
+            req = _Request([], max_new_tokens, stream, samp, embeds=embeds,
+                           stop_ids=stop_token_ids, stop_fn=stop_fn)
+        else:
+            req = _Request(list(prompt_ids or []), max_new_tokens, stream, samp,
+                           stop_ids=stop_token_ids, stop_fn=stop_fn)
+            if not req.ids:
+                raise ClientError("empty prompt (prepend a BOS token)")
         if len(req.stop_ids) > self.ecfg.max_stop_tokens:
             raise ClientError(f"{len(req.stop_ids)} stop_token_ids exceed the engine's "
                               f"max_stop_tokens={self.ecfg.max_stop_tokens}")
@@ -514,27 +578,83 @@ class ContinuousBatchingEngine:
         self.state["active"] &= ~mask
         self.state["budget"].masked_fill_(mask, 0)
 
+    def _prefix_lookup(self, ids: list[int], store_at: int, pre_cache: dict) -> int:
+        """The longest chunk-aligned prefix of ``ids`` (at most ``store_at``
+        tokens) that an entry holds: that entry is copied into
+        ``pre_cache``, marked recently used, and its length returned (0 on a
+        miss). An entry stored for a LONGER prefix serves any chunk-aligned
+        prefix of itself: its rows past the match are overwritten by this
+        prompt's remaining chunks or masked (later positions, and the
+        lane's seg metadata at insert)."""
+        P = self.ecfg.prefill_len
+        best_k, best_key = 0, None
+        for key in self._prefix_cache:
+            for k in range(min(len(key), store_at) // P, best_k, -1):
+                if tuple(ids[:k * P]) == key[:k * P]:
+                    best_k, best_key = k, key
+                    break
+        if not best_k:
+            self.prefix_misses += 1
+            return 0
+        self._prefix_cache.move_to_end(best_key)
+        for name, t in self._prefix_cache[best_key].items():
+            pre_cache[name].copy_(t)
+        self.prefix_hits += 1
+        return best_k * P
+
+    def _prefix_store(self, ids: list[int], store_at: int, pre_cache: dict) -> None:
+        """Store a clone of the prefill cache after ``ids[:store_at]``,
+        unless an entry already covers it; a new entry drops the shorter
+        entries it covers, and the least recently used go past the cap."""
+        key = tuple(ids[:store_at])
+        if any(len(k) >= store_at and k[:store_at] == key for k in self._prefix_cache):
+            return
+        for k in [k for k in self._prefix_cache if len(k) < store_at and key[:len(k)] == k]:
+            del self._prefix_cache[k]
+        self._prefix_cache[key] = _clone_cache(pre_cache)
+        while len(self._prefix_cache) > self.ecfg.prefix_cache_entries:
+            self._prefix_cache.popitem(last=False)
+
     def _admit(self, req: _Request) -> None:
         P = self.ecfg.prefill_len
-        # the lane must hold prompt + at least one generated token
-        ids = left_truncate_keep_bos(req.ids, self.ecfg.max_len - 1, self.ecfg.bos_token_id)
-        plen = len(ids)
+        emb = req.embeds
+        if emb is not None:
+            ids, plen = [], emb.shape[0]  # overlong embeddings were refused at submit
+        else:
+            # the lane must hold prompt + at least one generated token
+            ids = left_truncate_keep_bos(req.ids, self.ecfg.max_len - 1, self.ecfg.bos_token_id)
+            plen = len(ids)
         self._admit_count += 1
         samp = dict(req.samp)
         if samp["seed"] is None:
             # a per-admission stream: identical unseeded sampled prompts
             # should not give identical outputs
             samp["seed"] = self._admit_count
+        # the prefix cache: the K/V rows of a prefix do not depend on the
+        # request's sampling (which only picks `first` from the final chunk,
+        # always run), so reusing them is exact. Embeddings prompts bypass
+        # it (keys are token tuples); so do prompts without one full chunk
+        # before their last token.
+        store_at = ((plen - 1) // P) * P if self.ecfg.prefix_cache_entries and emb is None else 0
         pre_cache = self.prefill_fn.empty_cache()
+        start0 = self._prefix_lookup(ids, store_at, pre_cache) if store_at else 0
         first = None
         ids_t = torch.tensor(ids, dtype=torch.long)
-        for start in range(0, plen, P):
-            chunk = ids_t[start:start + P]
+        for start in range(start0, plen, P):
+            if store_at and start == store_at:
+                self._prefix_store(ids, store_at, pre_cache)
+            clen = min(P, plen - start)
+            if emb is not None:
+                chunk = torch.zeros((1, P, emb.shape[1]), dtype=emb.dtype, device=emb.device)
+                chunk[0, :clen] = emb[start:start + clen]
+                pre_cache, first = self.prefill_fn.embeds(self.params, pre_cache, chunk, clen,
+                                                          start, samp)
+                continue
             padded = torch.zeros((1, P), dtype=torch.long)
-            padded[0, :len(chunk)] = chunk
+            padded[0, :clen] = ids_t[start:start + clen]
             pre_cache, first = self.prefill_fn(self.params, pre_cache,
                                                padded.to(self.device, non_blocking=True),
-                                               len(chunk), start, samp)
+                                               clen, start, samp)
         slot = self._free.pop()
         try:
             budget = min(req.max_new_tokens, self.ecfg.max_len - plen)

@@ -9,8 +9,9 @@ of orbax). Each top-level parameter subtree is its own file inside
 
 ``load_params(dir, overrides={"sd_head": other_dir})`` re-points individual
 plugins at another run's checkpoint: the stage-mix workflow. Quantized
-weights (``QTensor``, ``Q4Tensor``) and 8-bit moments are stored as tagged
-dicts of CPU tensors, so every file loads with ``weights_only=True`` and
+weights (``QTensor``, ``Q4Tensor``), attached adapters (``LoRATensor``, its
+base tagged inside it) and 8-bit moments are stored as tagged dicts of CPU
+tensors, so every file loads with ``weights_only=True`` and
 comes back as the same types, with ``like=`` and without it. Checkpoints
 written by the JAX package (orbax) are not read here; bring a JAX state
 across with ``bridge.from_jax`` and ``bridge.opt_state_from_jax``.
@@ -27,7 +28,7 @@ from typing import Any
 
 import torch
 
-from dreamllm_tpu_torch.ops.quant import QTensor
+from dreamllm_tpu_torch.ops.quant import LoRATensor, QTensor
 from dreamllm_tpu_torch.ops.quant4 import GROUP, Q4Tensor
 from dreamllm_tpu_torch.train.optim8bit import _Moment
 from dreamllm_tpu_torch.train.tree import tree_map
@@ -42,6 +43,9 @@ def _to_cpu(tree):
     becomes a tagged dict, so the file holds plain containers and tensors
     only."""
     def one(x):
+        if isinstance(x, LoRATensor):
+            return {"__loratensor__": True, "base": one(x.base), "a": x.a.detach().cpu(),
+                    "b": x.b.detach().cpu(), "scale": x.scale.detach().cpu()}
         if isinstance(x, _Moment):
             return {"__moment__": True, "codes": x.codes.cpu(), "scale": x.scale.cpu()}
         if isinstance(x, QTensor):
@@ -58,6 +62,8 @@ def _from_saved(tree):
     if isinstance(tree, dict):
         if tree.get("__moment__"):
             return _Moment(tree["codes"], tree["scale"])
+        if tree.get("__loratensor__"):
+            return LoRATensor(_from_saved(tree["base"]), tree["a"], tree["b"], tree["scale"])
         if tree.get("__qtensor__"):
             return QTensor(tree["q"], tree["scale"])
         if tree.get("__q4tensor__"):
@@ -89,7 +95,7 @@ def _like(tree, like, where: str):
         if not isinstance(tree, _Moment):
             raise ValueError(f"{where}: expected an 8-bit moment, checkpoint has {type(tree)}")
         return _Moment(_like(tree.codes, like.codes, where), _like(tree.scale, like.scale, where))
-    if isinstance(like, (QTensor, Q4Tensor)):
+    if isinstance(like, (QTensor, Q4Tensor, LoRATensor)):
         if type(tree) is not type(like):
             raise ValueError(f"{where}: expected a {type(like).__name__}, checkpoint has "
                              f"{type(tree).__name__}")

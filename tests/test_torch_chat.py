@@ -231,6 +231,55 @@ def test_make_chat_fn_matches_jax(monkeypatch):
     assert min(margins) > 10 * LOGIT_TOL, margins
 
 
+def test_make_chat_fn_through_the_engine_matches_jax(monkeypatch):
+    """``make_chat_fn(engine=)``: a text-only turn through the engine's
+    token lanes and image turns through its embeddings lanes give the text
+    of the locked path and of JAX's chat function; the function is marked
+    concurrent and warms the engine (embeddings prefill included) before it
+    starts; two turns at once each keep their own tokens."""
+    import concurrent.futures as cf
+
+    import dreamllm_tpu_torch.serve.engine as pengine
+
+    jc, pc, jp, pp = dreamllm_params()
+    eos = pc.special_tokens.eos
+    eng = pengine.ContinuousBatchingEngine(
+        pp["llm"], pc.llm, psamp.SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=eos),
+        pengine.EngineConfig(slots=2, prefill_len=32, max_len=128, chunk_steps=4), device="cpu")
+    warmed = []
+    real_warmup = eng.warmup
+    monkeypatch.setattr(eng, "warmup", lambda embeds=False: warmed.append(embeds) or
+                        real_warmup(embeds=embeds))
+    efn = pchat.make_chat_fn(pp, pc, ptok.ToyTokenizer(), max_new_tokens_limit=16, engine=eng,
+                             device="cpu")
+    assert warmed == [True] and efn.concurrent
+    pfn = pchat.make_chat_fn(pp, pc, ptok.ToyTokenizer(), max_new_tokens_limit=16, device="cpu")
+    jfn = jchat.make_chat_fn(jp, jc, jtok.ToyTokenizer(), max_new_tokens_limit=16)
+    assert not getattr(pfn, "concurrent", False)
+    rng = np.random.default_rng(21)
+    images = [rng.random((32, 32, 3)).astype(np.float32) for _ in range(2)]
+    turns = [([{"role": "user", "content": "hello there, who are you?"}], [],
+              {"max_new_tokens": 6}),
+             ([{"role": "user", "content": "<image> what is this?"}], images[:1],
+              {"max_new_tokens": 5, "template": "vicuna_v0"}),
+             ([{"role": "user", "content": "compare <image> with <image>"}], images,
+              {"max_new_tokens": 7})]
+    margins = [logit_margins(monkeypatch, psamp), logit_margins(monkeypatch, pengine)]
+    want = [jfn(m, i, dict(r)) for m, i, r in turns]
+    eng.start()
+    try:
+        got = [efn(m, i, dict(r)) for m, i, r in turns]
+        with cf.ThreadPoolExecutor(2) as ex:
+            both = [f.result(timeout=120) for f in
+                    [ex.submit(efn, m, i, dict(r)) for m, i, r in turns[1:]]]
+    finally:
+        eng.stop()
+    locked = [pfn(m, i, dict(r)) for m, i, r in turns]
+    assert got == locked == [{"text": w["text"], "images": []} for w in want]
+    assert both == got[1:]
+    assert all(margins) and min(margins[0] + margins[1]) > 10 * LOGIT_TOL, margins
+
+
 def test_make_chat_fn_rejects_bad_requests_and_the_engine():
     _, pc, _, pp = dreamllm_params()
     fn = pchat.make_chat_fn(pp, pc, ptok.ToyTokenizer(), max_new_tokens_limit=8, device="cpu")
@@ -240,8 +289,9 @@ def test_make_chat_fn_rejects_bad_requests_and_the_engine():
                        ({"top_p": 0.0}, "top_p"), ({"temperature": float("nan")}, "temperature")):
         with pytest.raises(ClientError, match=match):
             fn(msgs, [], {"max_new_tokens": 4, **req})
-    with pytest.raises(NotImplementedError, match="#16"):
-        pchat.make_chat_fn(pp, pc, ptok.ToyTokenizer(), engine=object(), device="cpu")
+    with pytest.raises(ValueError, match="text-out only"):
+        pchat.make_chat_fn(pp, pc, ptok.ToyTokenizer(), engine=object(), head_params={},
+                           device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pchat.chat(pp, pc, ptok.ToyTokenizer(), _msgs(ptypes, DIALOGS[2]))

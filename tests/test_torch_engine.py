@@ -260,13 +260,21 @@ def test_warmup_and_request_validation():
 
 
 def test_parts_of_later_slices_raise():
+    """Speculation (#15) still raises. The prefix cache builds, and an
+    embeddings prompt is checked at submit: it must be ``[S, hidden]``,
+    fit the lane (it is never truncated) and come without ids."""
     with pytest.raises(NotImplementedError, match="#15"):
         _engine(speculative_k=2)
-    with pytest.raises(NotImplementedError, match="#16"):
-        _engine(prefix_cache_entries=2)
-    eng = _engine()
-    with pytest.raises(NotImplementedError, match="#16"):
-        eng.submit(prompt_embeds=np.zeros((3, 256), np.float32))
+    eng = _engine(prefix_cache_entries=2)
+    assert eng.prefix_hits == eng.prefix_misses == 0 and not eng._prefix_cache
+    with pytest.raises(ClientError, match="hidden dim"):
+        eng.submit(prompt_embeds=np.zeros((3, 255), np.float32))
+    with pytest.raises(ClientError, match="exceeds the lane"):
+        eng.submit(prompt_embeds=np.zeros((64, 256), np.float32))
+    with pytest.raises(ClientError, match=r"\[S>=1, H\]"):
+        eng.submit(prompt_embeds=np.zeros((256,), np.float32))
+    with pytest.raises(ValueError, match="not both"):
+        eng.submit([1, 2], prompt_embeds=np.zeros((2, 256), np.float32))
     with pytest.raises(ValueError, match="multiple of prefill_len"):
         _engine(max_len=60)
 
@@ -275,3 +283,90 @@ def test_left_truncation_keeps_bos():
     assert left_truncate_keep_bos([1, 5, 6, 7], 3, 1) == [1, 6, 7]
     assert left_truncate_keep_bos([4, 5, 6, 7], 3, 1) == [5, 6, 7]
     assert left_truncate_keep_bos([1, 5], 3, 1) == [1, 5]
+
+
+def _jax_tokens(prompts, max_new, weights="int4", vocab=512):
+    """JAX's greedy tokens for ``prompts`` as one right-padded batch."""
+    jc, _, jp, _ = serve_params(vocab, weights)
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    ids = np.zeros((len(prompts), lens.max()), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    out = jax_generate(jc, jp, ids, lens, max_new_tokens=max_new, eos_token_id=-1)["tokens"]
+    return [row.tolist() for row in out]
+
+
+def test_engine_prefix_cache_exact_and_bounded(jax_int4_kernel_function):  # noqa: F811
+    """Requests sharing a token-exact full-chunk prefix skip its prefill and
+    stay token-identical to the uncached port and to JAX; the LRU stays
+    bounded; an entry survives the prefills that follow it; prompts shorter
+    than one full chunk + 1 bypass the cache."""
+    eng = _engine(prefix_cache_entries=2).start()  # P = 16
+    try:
+        sys_prompt = [1] + list(range(20, 51))        # 32 tokens = 2 chunks
+        a, b = sys_prompt + [60, 61, 62], sys_prompt + [70, 71]
+        got_a = eng.submit(a, max_new_tokens=8)
+        assert eng.prefix_hits == 0 and eng.prefix_misses == 1
+        got_b = eng.submit(b, max_new_tokens=8)       # hits the 32-token prefix
+        assert eng.prefix_hits == 1
+        assert eng.submit(a, max_new_tokens=8) == got_a  # the entry was not overwritten
+        assert eng.prefix_hits == 2
+        for base in (100, 105, 110):                  # distinct prefixes: LRU eviction
+            eng.submit([1] + [base] * 33, max_new_tokens=2)
+        assert len(eng._prefix_cache) <= 2
+        hits, misses = eng.prefix_hits, eng.prefix_misses
+        eng.submit([1, 5, 9], max_new_tokens=2)
+        eng.submit([1] + list(range(3, 19)), max_new_tokens=2)  # 17 tokens: one chunk + 1
+        assert eng.prefix_hits == hits and eng.prefix_misses == misses + 1
+    finally:
+        eng.stop()
+    assert got_a == _port_ref(a, 8) and got_b == _port_ref(b, 8)
+    assert [got_a, got_b] == _jax_tokens([a, b], 8)
+
+
+def test_engine_prefix_cache_partial_match_extends(jax_int4_kernel_function):  # noqa: F811
+    """A hit on a SHORTER entry still stores the prompt's own longer
+    prefix, which then replaces the entry it covers; a prompt sharing only
+    the first chunk of the longer entry hits it too (its stale tail rows sit
+    at later positions, masked); every answer stays exact."""
+    eng = _engine(prefix_cache_entries=4).start()
+    try:
+        head16 = [1] + list(range(20, 35))            # exactly one chunk
+        eng.submit(head16 + [40], max_new_tokens=2)   # stores the 16-token prefix
+        long_prompt = head16 + list(range(40, 56)) + [90, 91]
+        got = eng.submit(long_prompt, max_new_tokens=8)
+        assert eng.prefix_hits == 1
+        assert any(len(k) == 32 for k in eng._prefix_cache)
+        got2 = eng.submit(long_prompt + [99], max_new_tokens=8)
+        assert eng.prefix_hits == 2
+        assert all(len(k) == 32 for k in eng._prefix_cache)
+        short = head16 + [77, 78, 79]
+        got3 = eng.submit(short, max_new_tokens=8)
+        assert eng.prefix_hits == 3
+    finally:
+        eng.stop()
+    prompts = [long_prompt, long_prompt + [99], short]
+    assert [got, got2, got3] == [_port_ref(p, 8) for p in prompts] == _jax_tokens(prompts, 8)
+
+
+def test_engine_embeds_prompt_matches_ids_prompt(jax_int4_kernel_function):  # noqa: F811
+    """``submit(prompt_embeds=embed_tokens[ids])`` is token-identical to
+    ``submit(ids)`` and to JAX, for a prompt inside one chunk and for one
+    that prefills in three; the embeddings prompt bypasses the prefix cache."""
+    _, _, _, pp = serve_params(512, "int4")
+    eng = _engine(prefix_cache_entries=2).warmup(embeds=True).start()
+    try:
+        short, long_p = [1, 17, 23, 42, 55], [1] + list(range(5, 40))
+        ref = eng.submit(short, max_new_tokens=10)
+        got = eng.submit(prompt_embeds=pp["embed_tokens"][torch.tensor(short)],
+                         max_new_tokens=10)
+        ref2 = eng.submit(long_p, max_new_tokens=8)
+        hits, misses = eng.prefix_hits, eng.prefix_misses
+        got2 = eng.submit(prompt_embeds=pp["embed_tokens"][torch.tensor(long_p)].numpy(),
+                          max_new_tokens=8)
+        assert (eng.prefix_hits, eng.prefix_misses) == (hits, misses)
+    finally:
+        eng.stop()
+    assert got == ref and got2 == ref2
+    jax10, jax8 = _jax_tokens([short, long_p], 10)
+    assert ref == jax10 and ref2 == jax8[:8]

@@ -62,6 +62,13 @@ def test_walk_covers_the_chat_and_t2i_modules():
         assert f"dreamllm_tpu_torch/{mod}.py" in names
 
 
+def test_walk_covers_the_lora_and_http_serving_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("train/lora", "train/hp_search", "serve/__init__", "serve/batching",
+                "serve/server", "eval/nlp", "utils/image", "utils/logging"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
+
+
 CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 
 
@@ -110,6 +117,9 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import dreamllm_tpu_torch.train.optim, dreamllm_tpu_torch.train.checkpoints\n"
         "import dreamllm_tpu_torch.serve.engine, dreamllm_tpu_torch.ops.quant\n"
         "import dreamllm_tpu_torch.generation.chat, dreamllm_tpu_torch.data.tokenization\n"
+        "import dreamllm_tpu_torch.train.lora, dreamllm_tpu_torch.train.hp_search\n"
+        "import dreamllm_tpu_torch.serve, dreamllm_tpu_torch.serve.batching\n"
+        "import dreamllm_tpu_torch.eval.nlp, dreamllm_tpu_torch.utils.image\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )

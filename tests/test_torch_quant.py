@@ -67,11 +67,21 @@ def test_dispatch_over_plain_and_int4(jax_int4_kernel_function):  # noqa: F811
 
 
 def test_dispatch_refuses_lora_weights():
-    class LoRATensor:  # the JAX package's adapter type, which the port has not yet
+    """The dispatch takes an attached adapter (``LoRATensor`` over a raw
+    base: ``x @ base + (x @ a) @ b * scale``, JAX's rounding) and refuses a
+    weight type it does not know."""
+    class Unknown:
         pass
 
-    with pytest.raises(NotImplementedError, match="#12"):
-        pquant.matmul(torch.zeros((1, 4)), LoRATensor())
+    with pytest.raises(TypeError, match="Unknown"):
+        pquant.matmul(torch.zeros((1, 4)), Unknown())
+    rng = np.random.default_rng(4)
+    w, a, b = (rng.standard_normal(s).astype(np.float32) for s in ((256, 128), (256, 4), (4, 128)))
+    x = rng.standard_normal((3, 256)).astype(np.float32)
+    want = jquant.matmul(jnp.asarray(x), jquant.LoRATensor(
+        base=jnp.asarray(w), a=jnp.asarray(a), b=jnp.asarray(b), scale=jnp.float32(2.0)))
+    got = pquant.matmul(t(x), pquant.LoRATensor(t(w), t(a), t(b), torch.tensor(2.0)))
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("weights", ["int8", "int4"])
