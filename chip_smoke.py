@@ -14,7 +14,8 @@ Phases, each on lines of its own; any failure exits non-zero:
    the int4 matmul also twice, for equal bits; the 8-bit AdamW also on a
    conv kernel, which its caller blocks in HWIO order, and on the float32
    factors of a LoRA adapter), timed beside the plain version, PyTorch's
-   own library call where there is one, and the card's bound;
+   own library call where there is one, and the card's bound; and whether
+   the int4 matmul gives each row of an 8-row call the bits of a 1-row one;
 4. small reference: a tiny random DreamLLM document, an image-out chat
    turn, a text-to-image at DeepCache interval 2 (the tiny UNet's
    ``conv_out`` redrawn at its fan-in scale, so that the images depend on
@@ -22,8 +23,10 @@ Phases, each on lines of its own; any failure exits non-zero:
    tiny int4 decoder's ``generate_text`` (batch 1 and 8) and engine (4
    slots, 6 requests), and the same decoder with a LoRA adapter attached
    (``generate_text``, the engine with the prefix cache and an embeddings
-   prompt, a micro-batching ``ModelServer``, one QLoRA step) on the card
-   agree with the same on the CPU;
+   prompt, a micro-batching ``ModelServer``, one QLoRA step), the decoding
+   variants on the int4 decoder (``beam_search``,
+   ``generate_text_speculative``, the speculative engine) and a tiny
+   ``run_vqa`` with 2 beams on the card agree with the same on the CPU;
 5. main path, serving: a random full-width DreamLLM-7B + SD-2.1 (bf16,
    seeded, built on the card) writes one interleaved document with two
    512x512 images; then, on the same parameters with the UNet's
@@ -49,7 +52,15 @@ Phases, each on lines of its own; any failure exits non-zero:
    continuous-batching engine with ``projects/dreamllm/serve.py``'s defaults
    (8 slots, unfused int4) answering 16 requests; the w4a16 kernel's launch
    count and one decode step's logits against its plain version are checked;
-8. main path, QLoRA and HTTP serving: a rank-8 LoRA adapter over that int4
+8. main path, decoding variants on that int4 decoder (unfused):
+   ``generate_text_speculative`` at batch 1 (draft 7 and 8) in turns with
+   ``generate_text``, ``beam_search`` with 4 beams at batch 1 and 2,
+   ``run_vqa`` on 8 synthetic 224x224 samples (greedy at batch 8, 4 beams
+   at batch 2) with DreamLLM-7B's CLIP tower, and the engine's per-slot
+   speculation (adaptive, static, off) on 16 repetitive prompts and on a
+   sparse mix; outputs are held to plain decode by a near-tie rule and the
+   w4a16 kernel's launches to the count derived for each path;
+9. main path, QLoRA and HTTP serving: a rank-8 LoRA adapter over that int4
    decoder takes three QLoRA steps at batch 2 x 2048 (8-bit AdamW on its
    float32 factors, lr 2e-4); then the adapter is served attached:
    ``generate_text`` beside the bare base, the engine with the prompt-prefix
@@ -190,7 +201,9 @@ def device_ms(fn, iters: int) -> float:
     ``torch.profiler`` over ``iters`` calls. Every kernel's ``ms``,
     ``plain_ms`` and ``library_ms`` is this time: unlike :func:`cuda_ms` it
     leaves out the host's launch overhead, which exceeds a small kernel's
-    time on the card."""
+    time on the card. Where three profiles in a row come back without
+    device time, the time between CUDA events stands in (:func:`cuda_ms`,
+    host launch cost included), and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -205,7 +218,9 @@ def device_ms(fn, iters: int) -> float:
                     if e.device_type == DeviceType.CUDA)
         if total > 0:
             return total / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time in three profiles")
+    log("[profile] torch.profiler recorded no device time in three profiles: "
+        "CUDA-event time instead")
+    return cuda_ms(fn, iters)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -672,6 +687,33 @@ def _w4_case(label, b, xdtype, gen):
             "bound_by": bound_by, "bound_share": bound_ms / ms}
 
 
+# the decoder's projections at 7B, [K, N]: both serving layouts
+W4_DECODER_SHAPES = ("wqkv", "wo", "w_gate_up", "w_gate", "w_down")
+
+
+def _w4_row_invariance(gen) -> dict:
+    """Whether the w4a16 kernel is row-invariant at each decoder shape: row
+    r of a B = 8 call against the B = 1 call on row r alone, bit for bit.
+    A measurement, not a check: where it holds, a K3 product in a verify
+    or beam forward (up to 8 rows) rounds every row as a plain decode step
+    would. Returns ``{shape: rows that differ}`` with the largest difference."""
+    from dreamllm_tpu_torch.ops.quant4 import quantize_int4, w4_matmul_cuda
+
+    out = {}
+    for label in W4_DECODER_SHAPES:
+        k, n = W4_SHAPES[label]
+        t = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5)
+        x = torch.randn((8, k), generator=gen, device="cuda").bfloat16()
+        full = w4_matmul_cuda(x, t)
+        rows = [w4_matmul_cuda(x[r:r + 1].contiguous(), t)[0] for r in range(8)]
+        diff = [(full[r].float() - rows[r].float()).abs().max().item() for r in range(8)]
+        out[label] = {"rows_differing": sum(d != 0 for d in diff), "max_abs_diff": max(diff)}
+        log(f"[kernels] w4a16 row invariance {label} {k}x{n}: rows of a B8 call equal to B1 "
+            f"calls bit for bit in {8 - out[label]['rows_differing']} of 8 rows (max-abs "
+            f"difference {max(diff):.3e})")
+    return out
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     pad = 24
@@ -716,7 +758,8 @@ def phase_kernels() -> dict:
         ("w_gate_up", 8), ("w_gate", 1), ("w_gate", 8), ("w_down", 1), ("w_down", 8))]
     # a 32000-wide head (bench.py's vocab) takes the kernel with float32 x
     w4.append(_w4_case("head32000", 1, torch.float32, gen))
-    return {"flash_fwd": results, "flash_bwd": bwd, "adam8bit": adam, "w4a16": w4}
+    return {"flash_fwd": results, "flash_bwd": bwd, "adam8bit": adam, "w4a16": w4,
+            "w4a16_row_invariance": _w4_row_invariance(gen)}
 
 
 def _tiny_configs():
@@ -1458,6 +1501,160 @@ def phase_small_qlora() -> None:
         f"adam8bit {adam8bit_update_cuda.launches - adam_before}")
 
 
+SMALL_VARIANTS_SEED = 31  # its CPU run's smallest margin is 1.37e-3
+# Beam scores (a sum of 12 steps' log-probs) on the card against the CPU, as
+# a share of the largest: the small QLoRA phase's loss limit. The card's
+# w4a16 kernel sums in another order than its plain version (rel-RMS up to
+# 3e-5 a product at 8 rows), which moves a score of -4 by about 5e-4.
+SMALL_SCORE_REL = 1e-3
+
+
+def _margin_spies(sampler, engine, margins):
+    """Record, on the CPU run, every ``llama_logits`` call's smallest top-1
+    minus top-2 gap and every beam step's gap between its k-th and (k+1)-th
+    candidate (where a beam enters or leaves). Returns the undo function."""
+    real_logits, real_top = sampler.llama_logits, sampler._top_k_stable
+
+    def logits_spy(*a):
+        out = real_logits(*a)
+        top2 = out.reshape(-1, out.shape[-1]).topk(2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+        return out
+
+    def top_spy(x, k):
+        if x.shape[-1] > k:
+            top = x.topk(k + 1, dim=-1).values
+            margins.append(float((top[..., k - 1] - top[..., k]).min()))
+        return real_top(x, k)
+
+    sampler.llama_logits = engine.llama_logits = logits_spy
+    sampler._top_k_stable = top_spy
+
+    def undo():
+        sampler.llama_logits = engine.llama_logits = real_logits
+        sampler._top_k_stable = real_top
+    return undo
+
+
+def phase_small_decode_variants() -> None:
+    """The decoding variants on a tiny float32 int4 decoder (as the small
+    int4 phase's: every projection and the head inside the w4a16 gate), the
+    card against the CPU: ``beam_search`` (4 beams at batch 2: 8 rows),
+    ``generate_text_speculative`` (draft 7: an 8-row verify window) on a
+    repetitive and a random prompt, and the speculative engine (2 slots, k
+    3: 8 rows a verify forward; every chunk drafts) answering 4 requests
+    give the same tokens, beam scores within ``SMALL_SCORE_REL``; the CPU
+    run's top-2 margins (and beam entry gaps) above 1e-3, the near-tie rule
+    of the small int4 phase. On the card, sampled requests answer the same through the
+    adaptive speculative engine and the plain one (the CPU's generators draw
+    other numbers than the card's). Last, a tiny DreamLLM's ``run_vqa`` with
+    2 beams at batch 2 gives the same predictions on the card and the CPU."""
+    import concurrent.futures as cf
+
+    import dreamllm_tpu_torch.generation.sampler as sampler
+    import dreamllm_tpu_torch.serve.engine as engine
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.eval.vqa import run_vqa
+    from dreamllm_tpu_torch.models.dreamllm import init_dreamllm_params
+    from dreamllm_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from dreamllm_tpu_torch.ops.quant4 import quantize_llama_params_int4, w4_matmul_cuda
+
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    gen = torch.Generator().manual_seed(SMALL_VARIANTS_SEED)
+    base = quantize_llama_params_int4(init_llama_params(cfg, generator=gen, device="cpu"))
+    chunk = torch.randint(3, 1024, (12,), generator=gen).tolist()
+    repetitive = [1] + chunk * 3
+    random_p = [1] + torch.randint(3, 1024, (36,), generator=gen).tolist()
+    beam_ids = torch.tensor([repetitive[:30], random_p[:30]])
+    beam_lens = torch.tensor([30, 24])
+    budgets = [24, 20, 16, 24]
+    reqs = [repetitive, random_p, repetitive[:20], random_p[:25]]
+    scfg = sampler.SamplingConfig(greedy=True, max_new_tokens=24, eos_token_id=-1)
+    ecfg = engine.EngineConfig(slots=2, prefill_len=32, max_len=128, chunk_steps=4,
+                               speculative_k=3, speculative_adaptive=False)
+
+    def serve(eng, kw=None):
+        eng.start()
+        try:
+            with cf.ThreadPoolExecutor(len(reqs)) as ex:
+                futs = [ex.submit(eng.submit, r, max_new_tokens=n, timeout=300, **(kw or {}))
+                        for r, n in zip(reqs, budgets)]
+                return [f.result(timeout=300) for f in futs]
+        finally:
+            eng.stop()
+
+    def run(device):
+        p = _to_device(base, device)
+        beams = sampler.beam_search(p, cfg, beam_ids, beam_lens, num_beams=4, max_new_tokens=12,
+                                    eos_token_id=-1, device=device)
+        spec = [sampler.generate_text_speculative(p, cfg, torch.tensor([q]), torch.tensor([len(q)]),
+                                                  scfg, draft_len=7, device=device)
+                for q in (repetitive, random_p)]
+        answers = serve(engine.ContinuousBatchingEngine(
+            p, cfg, sampler.SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=-1), ecfg,
+            device=device))
+        return ([beams["tokens"].cpu().tolist(), beams["scores"].cpu()],
+                [[o["tokens"].cpu().tolist(), o["steps"], o["accepted"]] for o in spec], answers)
+
+    margins: list[float] = []
+    undo = _margin_spies(sampler, engine, margins)
+    try:
+        ref = run("cpu")
+    finally:
+        undo()
+    if not min(margins) > 1e-3:
+        raise AssertionError(f"[small-variants] a near-tie on the CPU: margin {min(margins)}")
+    before = w4_matmul_cuda.launches
+    got = run("cuda")
+    if w4_matmul_cuda.launches == before:
+        raise AssertionError("[small-variants] the w4a16 kernel did not launch on the card")
+    score_err = (got[0][1] - ref[0][1]).abs().max().item()
+    score_tol = SMALL_SCORE_REL * ref[0][1].abs().max().item()
+    if got[0][0] != ref[0][0] or not score_err <= score_tol or got[1:] != ref[1:]:
+        raise AssertionError(f"[small-variants] card {got} vs CPU {ref}")
+    # sampled requests on the card: the adaptive speculative engine against the plain one
+    p = _to_device(base, "cuda")
+    samp = {"temperature": 0.3, "top_k": 4, "seed": 11}
+    sampled = [serve(engine.ContinuousBatchingEngine(
+        p, cfg, sampler.SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=-1),
+        engine.EngineConfig(slots=2, prefill_len=32, max_len=128, chunk_steps=4,
+                            speculative_k=k), device="cuda"), samp) for k in (0, 3)]
+    if sampled[0] != sampled[1]:
+        raise AssertionError(f"[small-variants] sampled answers, plain {sampled[0]} vs "
+                             f"speculative {sampled[1]}")
+    (_, steps_r, acc_r), (_, steps_n, acc_n) = got[1]
+    log(f"[small-variants] card == CPU: beam_search 4 beams x batch 2 (score max-abs "
+        f"{score_err:.1e}, limit {score_tol:.1e}), speculative draft 7 (repetitive: {steps_r} "
+        f"verify steps, {acc_r} drafts accepted; random: {steps_n} steps, {acc_n} accepted), speculative engine 2 slots "
+        f"x 4 requests ({sum(budgets)} tokens); sampled answers equal through the adaptive "
+        f"speculative engine and the plain one on the card; smallest margin {min(margins):.3e}; "
+        f"w4a16 launches {w4_matmul_cuda.launches - before}")
+
+    # run_vqa with 2 beams on a tiny DreamLLM
+    dcfg, _ = _tiny_configs()
+    dparams = init_dreamllm_params(dcfg, generator=gen, device="cpu")
+    tok = ToyTokenizer(vocab_size=dcfg.llm.vocab_size)
+    samples = [{"id": i, "question": f"what is in image {i}?", "answers": ["tok12"] * 10,
+                "image": torch.rand((48, 48, 3), generator=gen).numpy()} for i in range(4)]
+    vmargins: list[float] = []
+    undo = _margin_spies(sampler, engine, vmargins)
+    try:
+        vref = run_vqa(dparams, dcfg, tok, samples, max_new_tokens=6, batch_size=2, num_beams=2,
+                       device="cpu")
+    finally:
+        undo()
+    if not min(vmargins) > 1e-3:
+        raise AssertionError(f"[small-variants] run_vqa: a near-tie on the CPU: {min(vmargins)}")
+    vgot = run_vqa(_to_device(dparams, "cuda"), dcfg, tok, samples, max_new_tokens=6,
+                   batch_size=2, num_beams=2, device="cuda")
+    if vgot != vref:
+        raise AssertionError(f"[small-variants] run_vqa card {vgot} vs CPU {vref}")
+    log(f"[small-variants] run_vqa 2 beams x batch 2, 4 samples: card == CPU (score "
+        f"{vgot['score']}); smallest margin {min(vmargins):.3e}")
+
+
 def unet_flash_sites(unet_cfg, batch: int) -> tuple[int, bool]:
     """How many of the UNet's spatial self-attentions pass the flash rule at
     ``sample_size`` latents (one per transformer layer of every attention
@@ -1978,6 +2175,351 @@ def _dequant_ranges():
     return undo
 
 
+# Where a decoding variant's tokens part from their plain reference on the
+# card, the plain run's top-2 logit margin at the first differing position
+# (teacher-forced, dequantize products and plain attention) must be below
+# this: the variant rounds through other products (an 8-row K3 call or the
+# dequantize product, an attention of 1 + k query rows) than plain decode,
+# and one 7B decode step's logits moved by up to 7.4e-2 between K3 and its
+# plain version (the serving phases' logits check); twice that. Random 7B
+# weights give such near-ties often.
+NEAR_TIE_7B = 0.15
+# A beam's summed log-prob, from its cached decode steps (K3 products),
+# against ``sequence_logprob``'s of the same tokens (one cache-free forward,
+# dequantize products): at most this much apart per token. A beam whose
+# cache rows were reordered wrongly reads other keys and scores its tokens
+# a nat or more apart per token.
+BEAM_LP_TOL = 0.05
+
+
+def _forward_rows_counter():
+    """Count the cached decoder forwards that the generation drivers run,
+    by the rows they give each projection (batch x tokens): those of at most
+    8 rows take the w4a16 kernel. Returns ``(counts, undo)``."""
+    import dreamllm_tpu_torch.generation.sampler as sampler
+
+    real = sampler.llama_forward
+    counts = {"small": 0, "large": 0}
+
+    def counting(*a, **kw):
+        x = kw.get("input_ids")
+        x = kw.get("inputs_embeds") if x is None else x
+        if kw.get("kv_cache") is not None:
+            counts["small" if x.shape[0] * x.shape[1] <= 8 else "large"] += 1
+        return real(*a, **kw)
+
+    sampler.llama_forward = counting
+
+    def undo():
+        sampler.llama_forward = real
+    return counts, undo
+
+
+def _first_gap(params, cfg, prompt: list, got: list, ref: list):
+    """None where ``got == ref``; else (first differing position, the top-2
+    logit margin of ``params`` there, teacher-forced on ``prompt + ref``)."""
+    from dreamllm_tpu_torch.models.llama import llama_forward, llama_logits
+
+    if got == ref:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), min(len(got), len(ref)))
+    seq = torch.tensor([prompt + ref[:j]], device="cuda")
+    with torch.no_grad():
+        h = llama_forward(params, cfg, input_ids=seq, use_flash=False)["last_hidden_state"]
+        top2 = llama_logits(params, cfg, h[:, -1:])[0, 0].topk(2).values
+    return j, float(top2[0] - top2[1])
+
+
+def _near_tie_identity(label: str, params, cfg, triples) -> int:
+    """Hold each (prompt, got, plain reference) to the near-tie rule: equal,
+    or parting first where the plain run's margin is under NEAR_TIE_7B.
+    Prints every mismatch with its margin; returns how many are equal."""
+    equal = 0
+    for i, (prompt, got, ref) in enumerate(triples):
+        gap = _first_gap(params, cfg, prompt, got, ref)
+        if gap is None:
+            equal += 1
+            continue
+        j, margin = gap
+        log(f"[decode-variants] {label} #{i}: parts from its plain reference at token {j} of "
+            f"{len(ref)}; the plain run's top-2 margin there {margin:.4f} (limit {NEAR_TIE_7B})")
+        if j >= min(len(got), len(ref)) or not margin < NEAR_TIE_7B:
+            raise AssertionError(f"[decode-variants] {label} #{i}: a mismatch at token {j} that "
+                                 f"no near-tie explains (margin {margin})")
+    return equal
+
+
+def phase_decode_variants(base: dict) -> dict:
+    """Decoding variants on DreamLLM-7B's unfused int4 decoder (``base``, from
+    the serving phase), each path's launches counted alone and checked (224
+    w4a16 launches a forward of at most 8 rows; wider forwards take the
+    dequantize product):
+
+    1. ``generate_text_speculative`` at batch 1, draft 7 (an 8-row verify
+       window), 128 new tokens, on a repetitive prompt (a 64-token chunk
+       twice, as ``bench.py`` builds it) and a random one of 128 tokens, in
+       turns with ``generate_text`` (plain, spec, spec, plain); then draft 8
+       (9 rows: the dequantize product) once, 64 tokens;
+    2. ``beam_search``, 4 beams at batch 1 and 2 (4 and 8 rows), 64 tokens;
+       the best beam's score against ``sequence_logprob`` of its tokens and
+       of the greedy sequence's;
+    3. ``run_vqa`` on 8 synthetic samples (224 px, ``ToyTokenizer``, vqav2)
+       with DreamLLM-7B's CLIP tower and projector: greedy at batch 8, then
+       4 beams at batch 2; both shards merged;
+    4. the engine with ``bench.py``'s speculative settings (8 slots, prefill
+       128, max_len 512, chunk 16, k 7): 16 repetitive prompts at once, and
+       the sparse mix (12 requests, 3 at a time, repetitive and random in
+       turn), 64 new tokens a request, each load under the adaptive bandit,
+       static speculation and ``speculative_k=0``.
+
+    Every speculative and beam-1 output is held to its plain reference by
+    the near-tie rule. Returns the launch counts by path."""
+    import concurrent.futures as cf
+    import os
+
+    from dreamllm_tpu_torch.configs import dreamllm_7b
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.eval.nlp import sequence_logprob
+    from dreamllm_tpu_torch.eval.vqa import merge_prediction_shards, run_vqa
+    from dreamllm_tpu_torch.generation.sampler import (
+        SamplingConfig,
+        beam_search,
+        generate_text,
+        generate_text_speculative,
+    )
+    from dreamllm_tpu_torch.models.clip import init_clip_vision_params
+    from dreamllm_tpu_torch.models.projector import init_projector_params
+    from dreamllm_tpu_torch.serve.engine import ContinuousBatchingEngine, EngineConfig
+
+    device = "cuda"
+    sync = torch.cuda.synchronize
+    dcfg = dreamllm_7b(torch.bfloat16)[0]
+    cfg = dcfg.llm
+    vocab = cfg.vocab_size
+    per_fwd = W4_PER_LAYER["unfused"] * cfg.num_hidden_layers
+    gen = torch.Generator(device=device).manual_seed(6)
+    hgen = torch.Generator().manual_seed(7)
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def check(path: str, want_w4: int) -> dict:
+        got = _launch_counts()
+        want = {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0, "w4a16": want_w4}
+        if got != want:
+            raise AssertionError(f"[decode-variants] {path}: launches {got}, want {want}")
+        launches[path] = {k: launches.get(path, {}).get(k, 0) + v for k, v in got.items()}
+        return got
+
+    # -- 1. prompt-lookup speculation at batch 1 -------------------------------
+    chunk = torch.randint(10, min(31000, vocab), (64,), generator=hgen).tolist()
+    prompts = {"repetitive": chunk + chunk,
+               "random": torch.randint(10, min(31000, vocab), (128,), generator=hgen).tolist()}
+    new = 128
+    scfg = SamplingConfig(greedy=True, max_new_tokens=new, eos_token_id=-1)
+    runs: dict = {}
+    for kind, prompt in prompts.items():
+        ids, lens = torch.tensor([prompt], device=device), torch.tensor([len(prompt)])
+        for mode in ("plain", "spec", "spec", "plain"):
+            _zero_launch_counts()
+            sync()
+            t = time.perf_counter()
+            if mode == "spec":
+                out = generate_text_speculative(base, cfg, ids, lens, scfg, draft_len=7,
+                                                device=device)
+            else:
+                out = generate_text(base, cfg, ids, lens, scfg, device=device)
+            sync()
+            secs = time.perf_counter() - t
+            toks = out["tokens"][0, :int(out["lengths"][0])].tolist()
+            if len(toks) != new or not all(0 <= x < vocab for x in toks):
+                raise AssertionError(f"[decode-variants] {mode} {kind}: {len(toks)} tokens")
+            check("speculative_b1", per_fwd * out["steps"])
+            runs.setdefault((kind, mode), []).append(
+                {"s": secs, "tokens": toks, "steps": out["steps"],
+                 "accepted": out.get("accepted", 0)})
+            log(f"[decode-variants] {'speculative draft 7' if mode == 'spec' else 'generate_text'} "
+                f"B1 {kind}: {secs:.3f} s for {new} tokens ({new / secs:.1f} tokens/s, prefill "
+                f"included); {out['steps']} " + ("verify steps, "
+                                                 f"{out['accepted']} drafts accepted"
+                                                 if mode == "spec" else "decode steps"))
+    triples = [(prompts[kind], r["tokens"], runs[kind, "plain"][0]["tokens"])
+               for kind in prompts for r in runs[kind, "spec"] + runs[kind, "plain"][1:]]
+    equal = _near_tie_identity("speculative B1", base, cfg, triples)
+    # JAX's default draft_len 8: a 9-row window takes the dequantize product
+    kind = "repetitive"
+    ids, lens = torch.tensor([prompts[kind]], device=device), torch.tensor([128])
+    _zero_launch_counts()
+    sync()
+    t = time.perf_counter()
+    out8 = generate_text_speculative(base, cfg, ids, lens,
+                                     SamplingConfig(greedy=True, max_new_tokens=64,
+                                                    eos_token_id=-1),
+                                     draft_len=8, device=device)
+    sync()
+    secs8 = time.perf_counter() - t
+    check("speculative_b1", 0)
+    toks8 = out8["tokens"][0].tolist()
+    equal8 = _near_tie_identity("speculative draft 8", base, cfg,
+                                [(prompts[kind], toks8, runs[kind, "plain"][0]["tokens"][:64])])
+    mean = {k: sum(r["s"] for r in v) / len(v) for k, v in runs.items()}
+    rep_s, rep_p = mean["repetitive", "spec"], mean["repetitive", "plain"]
+    rnd_s, rnd_p = mean["random", "spec"], mean["random", "plain"]
+    log(f"[decode-variants] speculative B1 draft 7, means of two runs: repetitive "
+        f"{new / rep_s:.1f} tokens/s against generate_text's {new / rep_p:.1f} "
+        f"({rep_p / rep_s:.3f}x), {runs['repetitive', 'spec'][0]['steps']} verify steps a "
+        f"{new} tokens; random {new / rnd_s:.1f} against {new / rnd_p:.1f} "
+        f"({rnd_p / rnd_s:.3f}x), {runs['random', 'spec'][0]['steps']} steps; {equal} of {len(triples)} outputs equal "
+        f"the first plain run's; draft 8 (dequantize product): {secs8:.3f} s for 64 tokens "
+        f"({64 / secs8:.1f} tokens/s), {out8['steps']} verify steps, {out8['accepted']} accepted, "
+        f"{equal8} of 1 equal; w4a16 launches {launches['speculative_b1']['w4a16']} = {per_fwd} x "
+        f"the decode and verify forwards of at most 8 rows")
+
+    # -- 2. beam search -------------------------------------------------------
+    bprompts = torch.randint(10, min(31000, vocab), (2, 128), generator=hgen).tolist()
+    bnew, beams = 64, 4
+    beam_out = {}
+    for b in (1, 2):
+        ids = torch.tensor(bprompts[:b], device=device)
+        _zero_launch_counts()
+        sync()
+        t = time.perf_counter()
+        out = beam_search(base, cfg, ids, torch.full((b,), 128), num_beams=beams,
+                          max_new_tokens=bnew, eos_token_id=-1, device=device)
+        sync()
+        secs = time.perf_counter() - t
+        check("beam_search", per_fwd * (bnew - 1))
+        beam_out[b] = out
+        scores = [round(x, 4) for x in out["scores"].tolist()]
+        log(f"[decode-variants] beam_search {beams} beams x batch {b} ({beams * b} rows): "
+            f"{secs:.3f} s a call for {bnew} tokens ({secs / (bnew - 1) * 1e3:.1f} ms a beam "
+            f"step, prefill included); scores {scores}")
+    greedy = generate_text(base, cfg, torch.tensor(bprompts[:1], device=device),
+                           torch.tensor([128]), SamplingConfig(greedy=True, max_new_tokens=bnew,
+                                                               eos_token_id=-1),
+                           device=device)["tokens"][0].tolist()
+    beam_toks = beam_out[1]["tokens"][0].tolist()
+
+    def logprob(cont):
+        seq = torch.tensor([bprompts[0] + cont], device=device)
+        return float(sequence_logprob(base, cfg, seq, torch.tensor([128], device=device),
+                                      torch.tensor([128 + len(cont)], device=device))[0])
+
+    lp_beam, lp_greedy = logprob(beam_toks), logprob(greedy)
+    score = float(beam_out[1]["scores"][0]) * bnew  # length penalty 1, no EOS: the sum
+    tol = BEAM_LP_TOL * bnew
+    if not (abs(score - lp_beam) <= tol and lp_beam >= lp_greedy - tol):
+        raise AssertionError(f"[decode-variants] beam score {score} against its sequence_logprob "
+                             f"{lp_beam} and the greedy sequence's {lp_greedy} (tolerance {tol})")
+    same_b2 = beam_out[2]["tokens"][0].tolist() == beam_toks
+    log(f"[decode-variants] best beam (batch 1): summed score {score:.4f}, sequence_logprob of its "
+        f"tokens {lp_beam:.4f}, of the greedy sequence {lp_greedy:.4f} (tolerance {tol:.2f}); "
+        f"row 0 at batch 2 {'equals' if same_b2 else 'differs from'} batch 1's; w4a16 launches "
+        f"{launches['beam_search']['w4a16']} = {per_fwd} x {2 * (bnew - 1)} beam steps")
+
+    # -- 3. the VQA driver ----------------------------------------------------
+    with torch.no_grad():
+        vparams = {"llm": base, "clip_vision_embedding": {
+            "clip": init_clip_vision_params(dcfg.vision, generator=gen, device=device),
+            "projector": init_projector_params(dcfg.projector_cfg(), generator=gen,
+                                               device=device)}}
+    tok = ToyTokenizer(vocab_size=vocab)
+    samples = [{"id": i, "question": f"what is the colour of object {i}?",
+                "answers": ["tok20"] * 10,
+                "image": torch.rand((224, 224, 3), generator=hgen).numpy()} for i in range(8)]
+    out_dir = os.path.join("build", "decode_variants")
+    shards, vqa = [], {}
+    for label, kw in (("greedy B8", dict(batch_size=8)),
+                      ("4 beams B2", dict(batch_size=2, num_beams=4))):
+        shards.append(os.path.join(out_dir, f"vqa_{len(shards)}.json"))
+        counts, undo = _forward_rows_counter()
+        _zero_launch_counts()
+        sync()
+        t = time.perf_counter()
+        try:
+            res = run_vqa(vparams, dcfg, tok, samples, task="vqav2", out_path=shards[-1],
+                          device=device, **kw)
+        finally:
+            undo()
+        sync()
+        secs = time.perf_counter() - t
+        check("vqa", per_fwd * counts["small"])
+        vqa[label] = res
+        if not (math.isfinite(res["score"]) and 0.0 <= res["score"] <= 1.0
+                and len(res["predictions"]) == 8):
+            raise AssertionError(f"[decode-variants] run_vqa {label}: {res['score']}")
+        log(f"[decode-variants] run_vqa {label}: {secs / 8:.3f} s a sample ({secs:.3f} s for 8, "
+            f"CLIP, prompts of {counts['large']} prefills and {counts['small']} decode forwards "
+            f"included); score {res['score']}; w4a16 launches {per_fwd} x {counts['small']}")
+    merged = merge_prediction_shards(shards, os.path.join(out_dir, "vqa_merged.json"))
+    if merged["n"] != 16 or not 0.0 <= merged["score"] <= 1.0:
+        raise AssertionError(f"[decode-variants] merged shards {merged}")
+    log(f"[decode-variants] shards merged: {merged}")
+    del vparams
+
+    # -- 4. the engine's per-slot speculation ---------------------------------
+    def make_prompt(repetitive: bool) -> list:
+        if repetitive:
+            c = torch.randint(10, min(31000, vocab), (63,), generator=hgen).tolist()
+            return [1] + c + c + c[:1]
+        return [1] + torch.randint(10, min(31000, vocab), (127,), generator=hgen).tolist()
+
+    loads = {"repetitive x16": ([make_prompt(True) for _ in range(16)], None),
+             "sparse 12/3": ([make_prompt(i % 2 == 0) for i in range(12)], 3)}
+    enew = 64
+    scfg0 = SamplingConfig(greedy=True, max_new_tokens=0, eos_token_id=-1, pad_token_id=0)
+    policies = {"plain": dict(speculative_k=0), "adaptive": dict(speculative_k=7),
+                "static": dict(speculative_k=7, speculative_adaptive=False)}
+
+    def serve(reqs, concurrency, policy):
+        _zero_launch_counts()  # the warmup's plain chunk launches the kernel too
+        eng = ContinuousBatchingEngine(base, cfg, scfg0, EngineConfig(
+            slots=8, prefill_len=128, max_len=512, chunk_steps=16, **policies[policy]),
+            device=device).warmup()
+        answers = [None] * len(reqs)
+
+        def lane(w):
+            for i in range(w, len(reqs), concurrency or len(reqs)):
+                answers[i] = eng.submit(reqs[i], max_new_tokens=enew, timeout=900)
+
+        eng.start()
+        try:
+            t = time.perf_counter()
+            with cf.ThreadPoolExecutor(concurrency or len(reqs)) as ex:
+                list(ex.map(lane, range(concurrency or len(reqs)), timeout=900))
+            secs = time.perf_counter() - t
+        finally:
+            eng.stop()
+        warm_plain = 1 if eng.decode_plain_fn is not None or not eng.ecfg.speculative_k else 0
+        check("engine_spec", per_fwd * eng.ecfg.chunk_steps * (eng.plain_chunks + warm_plain))
+        if any(a is None or len(a) != enew for a in answers):
+            raise AssertionError(f"[decode-variants] engine {policy}: answers of lengths "
+                                 f"{[None if a is None else len(a) for a in answers]}")
+        return eng, answers, secs
+
+    for name, (reqs, conc) in loads.items():
+        order = ("plain", "adaptive", "static") if conc is None else ("static", "adaptive", "plain")
+        res = {p: serve(reqs, conc, p) for p in order}
+        ref = res["plain"][1]
+        parts = []
+        for policy in ("adaptive", "static", "plain"):
+            eng, answers, secs = res[policy]
+            eq = (_near_tie_identity(f"engine {policy} {name}", base, cfg,
+                                     list(zip(reqs, answers, ref))) if policy != "plain"
+                  else len(reqs))
+            picks = {f"{m}@{b}": round(v, 1) for (m, b), v in sorted(eng._mode_ema.items())}
+            parts.append(f"{policy} {len(reqs) * enew / secs:.1f} tokens/s ({secs:.3f} s; spec "
+                         f"chunks {eng.spec_chunks}, plain chunks {eng.plain_chunks}"
+                         + (f"; bandit tokens/s {picks}" if picks else "")
+                         + f"; {eq} of {len(reqs)} answers equal the plain engine's)")
+        log(f"[decode-variants] engine 8 slots, prefill 128, max_len 512, chunk 16, k 7, "
+            f"{name}, {enew} tokens a request: " + "; ".join(parts))
+    log(f"[decode-variants] w4a16 launches on the engine runs {launches['engine_spec']['w4a16']} "
+        f"= {per_fwd} x 16 x the plain chunks (warmup included; a verify forward of 8 x 8 rows "
+        f"takes the dequantize product); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
 QLORA_LR = 2e-4  # the QLoRA paper's 7B setting (Dettmers et al. 2023), constant
 
 
@@ -2455,13 +2997,15 @@ def kernel_line(checks: dict, launches: dict) -> dict:
             return sum(r[key] * w for r, w in picked) / total
 
         by_path = {path: counts[name] for path, counts in launches.items() if name in counts}
+        extra = {"row_invariance": checks[f"{name}_row_invariance"]} \
+            if f"{name}_row_invariance" in checks else {}
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": picked[0][0]["bound_by"], "library_ms": mean("library_ms"),
-            "per_shape": rows,
+            "per_shape": rows, **extra,
         })
     return {"kernels": out}
 
@@ -2475,6 +3019,7 @@ def main() -> int:
                          "(Chrome traces to DIR) and one train step (kernel sums only)")
     args = ap.parse_args()
 
+    start = time.perf_counter()
     line = phase_env()
     phase_build()
     checks = phase_kernels()
@@ -2484,6 +3029,7 @@ def main() -> int:
         phase_small_train()
         phase_small_quant()
         phase_small_qlora()
+        phase_small_decode_variants()
         launches["serving"], model = phase_main(args.profile)
         launches["t2i"], launches["t2i_deepcache2"] = phase_t2i(model)
         launches["serving_deepcache2"] = phase_document_dc2(model)
@@ -2494,9 +3040,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["quantized_serving"], int4_base = phase_serve_int4(args.profile)
         torch.cuda.empty_cache()
+        launches.update(phase_decode_variants(int4_base))
+        torch.cuda.empty_cache()
         launches["qlora_training"], launches["qlora_serving"] = phase_qlora(int4_base,
                                                                             args.profile)
         del int4_base
+    log(f"[time] every phase: {time.perf_counter() - start:.1f} s")
     log(line)
     print(json.dumps(kernel_line(checks, launches)))
     print(json.dumps({"ok": True, "device": {

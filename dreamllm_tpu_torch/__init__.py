@@ -17,5 +17,12 @@ Importing the package imports torch only: no JAX, nothing of
 """
 
 from dreamllm_tpu_torch.device import resolve_device
+from dreamllm_tpu_torch.generation.sampler import (
+    SamplingConfig,
+    beam_search,
+    generate_text,
+    generate_text_speculative,
+)
 
-__all__ = ["resolve_device"]
+__all__ = ["SamplingConfig", "beam_search", "generate_text", "generate_text_speculative",
+           "resolve_device"]

@@ -38,8 +38,19 @@ Two admission paths sit beside the token prompt:
     embeddings (image features from ``multimodal_embed``) prefill through
     the same chunks and then decode as any other lane.
 
-Per-slot speculative decoding (``speculative_k > 0``) is not in this module
-yet (ROADMAP #15) and raises ``NotImplementedError``.
+Per-slot speculative decoding (``speculative_k > 0``): each decode step
+drafts ``k`` tokens per lane by prompt lookup (the latest earlier match of
+the lane's last two tokens in its token ``history``) and verifies them in
+one forward of ``1 + k`` tokens a lane. A draft is accepted only when it
+equals the token the true stream samples at its position (greedy, or the
+request's (seed, index) generator), so the output equals the plain
+engine's. With ``speculative_adaptive`` the scheduler keeps both chunk
+functions and picks one per chunk by an epsilon-greedy bandit over measured
+tokens per second, keyed by the number of busy lanes. A verify window may
+reach past a lane's ``max_len``: the spec engine's cache has ``k`` rows of
+slack past ``max_len`` that no position reaches (JAX drops those writes;
+the port's cache write raises for every other caller), and the history
+drops them.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from collections import OrderedDict, deque
 from typing import Callable
 
@@ -99,7 +111,14 @@ class EngineConfig:
     chunk_steps: int = 8        # decode steps per scheduled chunk
     cache_dtype: str = "bfloat16"   # or "int8" (halved KV memory)
     bos_token_id: int | None = 1    # kept at position 0 when left-truncating
-    speculative_k: int = 0          # per-slot speculative decoding: ROADMAP #15
+    # per-slot speculative decoding (0 = off): k prompt-lookup drafts a lane
+    # a step, verified in one forward of 1 + k tokens; the output does not
+    # change, only the speed
+    speculative_k: int = 0
+    # with speculative_k > 0: keep the plain chunk function too and pick one
+    # per chunk from measured tokens/s a busy-lane count (an epsilon-greedy
+    # bandit); False always drafts
+    speculative_adaptive: bool = True
     # per-lane capacity for single-token stop separators: each request may
     # pass up to this many stop_token_ids; they halt the lane WITHOUT being
     # emitted (EOS semantics)
@@ -120,10 +139,19 @@ class EngineConfig:
 def init_engine_state(llm_cfg: LlamaConfig, ecfg: EngineConfig, *, device="cuda") -> dict:
     dev = resolve_device(device)
     s = ecfg.slots
-    cache = init_kv_cache(llm_cfg, s, ecfg.max_len, dtype=_CACHE_DTYPES[ecfg.cache_dtype],
-                          device=dev)
+    # a verify window writes 1 + k rows from a lane's offset (at most
+    # max_len - 1): k rows of slack take what passes max_len; no position
+    # reaches them, so they stay masked
+    cache = init_kv_cache(llm_cfg, s, ecfg.max_len + ecfg.speculative_k,
+                          dtype=_CACHE_DTYPES[ecfg.cache_dtype], device=dev)
     cache["index"] = torch.zeros((s,), dtype=torch.int32, device=dev)  # per-lane offsets
+    extra = {}
+    if ecfg.speculative_k:
+        # per-lane token history aligned with cache positions (prompt ids at
+        # insert, decoded tokens as they are stored): the drafts' source
+        extra["history"] = torch.zeros((s, ecfg.max_len), dtype=torch.int32, device=dev)
     return {
+        **extra,
         "cache": cache,
         "cur_tok": torch.zeros((s,), dtype=torch.int32, device=dev),
         "active": torch.zeros((s,), dtype=torch.bool, device=dev),
@@ -144,10 +172,9 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
     """Build ``(prefill_chunk_fn, insert_fn, decode_chunk_fn)``, the
     counterparts of JAX's compiled programs, as eager functions that update
     the state in place. ``prefill_chunk_fn.embeds`` is the embeddings-prompt
-    twin of the prefill (JAX's ``prefill_embeds_chunk_fn``)."""
-    if ecfg.speculative_k:
-        raise NotImplementedError("speculative_k > 0: per-slot speculative decoding waits for "
-                                  "ROADMAP #15")
+    twin of the prefill (JAX's ``prefill_embeds_chunk_fn``). With
+    ``speculative_k`` the decode function is the speculative one, carrying
+    the plain one as ``.plain`` when ``speculative_adaptive``."""
     P, S, K = ecfg.prefill_len, ecfg.max_len, ecfg.chunk_steps
     if S % P != 0:
         # the final prefill chunk writes a full P-row slice at its start
@@ -203,17 +230,24 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
         return _prefill(params, cache, clen, start, samp,
                         inputs_embeds=embeds.to(llm_cfg.dtype))
 
-    def insert_fn(state, pre_cache, plen: int, slot: int, first_tok, budget: int, samp, halt):
+    def insert_fn(state, pre_cache, plen: int, slot: int, first_tok, budget: int, samp, halt,
+                  lane_ids=None):
         """Claim lane ``slot``: copy the prefilled K/V, reset the lane's
-        metadata and its per-request sampling parameters."""
+        metadata and its per-request sampling parameters. ``lane_ids``
+        (``[max_len]`` int32, the prompt ids zero-padded) seeds the lane's
+        token history when the engine speculates; None leaves zeros (an
+        embeddings prompt drafts from its generated tokens only)."""
         cache = state["cache"]
         for name in lane_names:
             if name in cache:
-                cache[name][:, slot] = pre_cache[name][:, 0]
+                cache[name][:, slot, :S] = pre_cache[name][:, 0]
         lane_seg = (arange_s < plen).to(torch.int32)
-        cache["seg"][slot] = lane_seg
-        cache["pos"][slot] = torch.where(lane_seg == 1, arange_s, 0)
+        cache["seg"][slot] = 0  # the slack rows past max_len too
+        cache["seg"][slot, :S] = lane_seg
+        cache["pos"][slot, :S] = torch.where(lane_seg == 1, arange_s, 0)
         cache["index"][slot] = plen
+        if "history" in state:
+            state["history"][slot] = 0 if lane_ids is None else lane_ids
         state["halt"][slot] = halt
         first = first_tok.reshape(()).to(torch.int32)
         eos_now = (first == scfg.eos_token_id) | (first == halt).any()
@@ -225,6 +259,14 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
             state[name][slot] = samp[name]
         return state
 
+    def generators(row_seeds, emitted, offsets):
+        """Per row, the generator of the sample it draws now, or None: lane
+        i's rows draw samples ``emitted[i] + o`` (``o`` in ``offsets``) of
+        its request's stream. ``emitted`` is read on the card, once."""
+        e = emitted.tolist()
+        return [None if seed is None else stream_generator(seed, e[i] + o, dev)
+                for i, seed in enumerate(row_seeds) for o in offsets]
+
     def decode_chunk_fn(params, state, row_seeds=None):
         """K decode steps over every lane. Returns ``(state, tokens [B, K],
         valid [B, K], active [B] int32)``; the state is updated in place.
@@ -232,14 +274,18 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
         The step semantics are ``generate_text``'s: the carried token is
         STORED this step and the sampled token becomes the next carry.
         ``row_seeds``: None when every active lane is greedy (argmax, no
-        sort), else per lane ``(seed, first sample index of this chunk)`` or
-        None; step j of the chunk draws sample ``first + j``."""
+        sort), else per lane the request's seed or None. A lane's token
+        sampled now is sample ``emitted`` (after this step's count) of its
+        stream, as in JAX: the index is read on the card at each step, so it
+        holds whichever chunk function ran before."""
         cache = state["cache"]
         cur, active = state["cur_tok"], state["active"]
         emitted, budget = state["emitted"], state["budget"]
+        hist = state.get("history")
         emits, valids = [], []
         for j in range(K):
             idx0 = cache["index"]
+            gens = None if row_seeds is None else generators(row_seeds, emitted, (1,))
             # a lane that filled its cache sits at S and is inactive: its
             # (masked, seg 0) write goes to the last row instead
             widx = torch.where(active, idx0, idx0.clamp_max(S - 1))
@@ -250,16 +296,19 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
             cache["index"] = torch.where(active, idx0 + 1, idx0)
             logits = llama_logits(params, llm_cfg, out["last_hidden_state"])[:, 0]
             emitted = emitted + active.to(torch.int32)
-            if row_seeds is None:
+            if gens is None:
                 nxt = logits.argmax(dim=-1).to(torch.int32)
             else:
                 # inactive lanes count as greedy: their token is never emitted
-                gens = [None if rs is None else stream_generator(rs[0], rs[1] + j, dev)
-                        for rs in row_seeds]
                 nxt = sample_token_per_row(logits, state["greedy"] | ~active,
                                            state["temperature"], state["top_k"],
                                            state["top_p"], gens)
             emit = torch.where(active, cur, scfg.pad_token_id)
+            if hist is not None:
+                # keep the drafts' source aligned with the cache across mode
+                # switches: position idx0 holds the token written there now
+                hist = torch.where(active[:, None] & (arange_s[None] == idx0[:, None]),
+                                   cur[:, None], hist)
             hit_stop = torch.zeros_like(active)
             for t in scfg.stop_tokens:
                 hit_stop |= emit == t
@@ -270,13 +319,107 @@ def make_engine_fns(llm_cfg: LlamaConfig, scfg: SamplingConfig, ecfg: EngineConf
                       & (emitted < budget) & (cache["index"] < S))
             cur = nxt
         state.update(cur_tok=cur, active=active, emitted=emitted)
+        if hist is not None:
+            state["history"] = hist
         # routing goes by the validity mask, not by the pad id: a generated
         # pad-id token (<unk> is id 0 in LLaMA vocabs) stays in the stream
         return (state, torch.stack(emits, dim=1), torch.stack(valids, dim=1),
                 active.to(torch.int32))
 
+    k = ecfg.speculative_k
+    W = 1 + k  # verify window: the carried token and k drafts
+    arange_w = torch.arange(W, dtype=torch.int32, device=dev)
+    arange_k = torch.arange(k, dtype=torch.int32, device=dev)
+
+    def decode_spec_chunk_fn(params, state, row_seeds=None):
+        """K speculative decode steps over every lane. Returns ``(state,
+        tokens [B, K*(1+k)], valid [B, K*(1+k)], active [B] int32)``, the
+        rows chunk-ordered per lane; the state is updated in place.
+
+        Each step drafts ``k`` tokens a lane from its history (the latest
+        match of ``(prev, cur)`` strictly before ``index - 1``), verifies
+        ``[cur, d_1..d_k]`` in one forward, samples the true stream at every
+        window position (position i draws sample ``emitted + 1 + i``, the
+        index read on the card) and accepts drafts while they equal it, with
+        the plain step's stop rules applied at every stored token. Rows of
+        the window past the accepted prefix stay in the cache, hidden by
+        their positions until the next window overwrites them."""
+        cache = state["cache"]
+        cur, active = state["cur_tok"], state["active"]
+        emitted, budget, hist = state["emitted"], state["budget"], state["history"]
+        halt = state["halt"]
+        b = cur.shape[0]
+        rows = torch.arange(b, device=dev)[:, None]
+        toks, valids = [], []
+        for _ in range(K):
+            idx0 = cache["index"]
+            # draft: the latest 2-gram (prev, cur) match in the history
+            prev = hist.gather(1, (idx0.long() - 1).clamp_min(0)[:, None])[:, 0]
+            hist_prev = torch.nn.functional.pad(hist[:, :-1], (1, 0))
+            cand = ((hist == cur[:, None]) & (hist_prev == prev[:, None])
+                    & (arange_s[None] >= 1) & (arange_s[None] < idx0[:, None] - 1))
+            jstar = torch.where(cand, arange_s[None], -1).amax(dim=1)
+            start = torch.where(jstar >= 0, jstar + 1, 0)
+            drafts = hist.gather(1, (start[:, None] + arange_k[None]).clamp(0, S - 1).long())
+            qtok = torch.cat([cur[:, None], drafts], dim=1)  # [B, W]
+
+            gens = None if row_seeds is None else generators(row_seeds, emitted,
+                                                             range(1, W + 1))
+            pos = idx0[:, None] + arange_w[None]
+            # a finished lane sits at max_len: its (seg 0) window goes one row lower
+            cache["index"] = torch.where(active, idx0, idx0.clamp_max(S - 1))
+            out = llama_forward(params, llm_cfg, input_ids=qtok.long(),
+                                segment_ids=active[:, None].expand(b, W).to(torch.int32),
+                                positions=pos, kv_cache=cache)
+            logits = llama_logits(params, llm_cfg, out["last_hidden_state"])  # [B, W, V]
+            if gens is None:
+                sampled = logits.argmax(dim=-1).to(torch.int32)
+            else:
+                sampled = sample_token_per_row(
+                    logits.reshape(b * W, -1), (state["greedy"] | ~active).repeat_interleave(W),
+                    state["temperature"].repeat_interleave(W), state["top_k"].repeat_interleave(W),
+                    state["top_p"].repeat_interleave(W), gens).reshape(b, W)
+
+            # the sequential accept/emit rule, unrolled over the window: `live`
+            # = the lane is active and this position is on the true path;
+            # `lane_active` = what the lane carries out, set by the last
+            # reached position's continuation checks (the plain step's)
+            live, lane_active, emit_cnt = active, active, emitted
+            masks = []
+            for j in range(W):
+                masks.append(live)
+                emit_cnt = emit_cnt + live.to(torch.int32)
+                cj, nxt_j = qtok[:, j], sampled[:, j]
+                hit_stop = torch.zeros_like(live)
+                for t in scfg.stop_tokens:
+                    hit_stop = hit_stop | (cj == t)
+                cont = ((nxt_j != scfg.eos_token_id) & ~(nxt_j[:, None] == halt).any(dim=1)
+                        & ~hit_stop & (emit_cnt < budget) & (idx0 + j + 1 < S))
+                lane_active = torch.where(live, cont, lane_active)
+                if j < k:
+                    live = live & cont & (nxt_j == drafts[:, j])
+            adv = emit_cnt - emitted  # tokens stored this step (0 if inactive)
+            cur = sampled.gather(1, (adv.long() - 1).clamp_min(0)[:, None])[:, 0]
+            cache["index"] = idx0 + adv
+            # the whole window goes into the history (rows past the accepted
+            # prefix are overwritten later, and drafting reads only below
+            # index - 1); positions past max_len are dropped
+            wide = torch.nn.functional.pad(hist, (0, W))
+            wide[rows, pos.long()] = qtok
+            hist = wide[:, :S]
+            active, emitted = lane_active, emit_cnt
+            toks.append(qtok)
+            valids.append(torch.stack(masks, dim=1))
+        state.update(cur_tok=cur, active=active, emitted=emitted, history=hist)
+        return (state, torch.cat(toks, dim=1), torch.cat(valids, dim=1),
+                active.to(torch.int32))
+
     prefill_chunk_fn.empty_cache = empty_prefill_cache
     prefill_chunk_fn.embeds = prefill_embeds_chunk_fn
+    if k:
+        if ecfg.speculative_adaptive:
+            decode_spec_chunk_fn.plain = decode_chunk_fn  # both share the state
+        return prefill_chunk_fn, insert_fn, decode_spec_chunk_fn
     return prefill_chunk_fn, insert_fn, decode_chunk_fn
 
 
@@ -354,6 +497,15 @@ class ContinuousBatchingEngine:
         self.ecfg = ecfg or EngineConfig()
         self.prefill_fn, self.insert_fn, self.decode_chunk_fn = make_engine_fns(
             llm_cfg, scfg, self.ecfg, device=self.device)
+        # adaptive speculation: the plain chunk function beside the drafting
+        # one, and the bandit's tokens/s EMAs per (mode, busy lanes)
+        self.decode_plain_fn = getattr(self.decode_chunk_fn, "plain", None)
+        self._mode_ema: dict[tuple[str, int], float] = {}
+        self._mode_seen: dict[tuple[str, int], int] = {}
+        self._mode_picks: dict[int, int] = {}  # picks per busy-lane count
+        self._last_fetch_t: float | None = None
+        self.spec_chunks = 0
+        self.plain_chunks = 0
         self.state = init_engine_state(llm_cfg, self.ecfg, device=self.device)
         self._queue: queue.Queue[_Request | None] = queue.Queue()
         self._by_slot: dict[int, _Request] = {}
@@ -401,8 +553,9 @@ class ContinuousBatchingEngine:
         that the first request does not pay one-time costs (the kernels'
         build at their first launch, the allocator's first blocks) while
         live lanes wait; with the prefix cache, one entry's copy as well,
-        and with ``embeds`` the embeddings prefill. Lane 0 is inserted with
-        budget 0, i.e. inactive. Must run before :meth:`start`."""
+        with ``embeds`` the embeddings prefill, and with adaptive
+        speculation both chunk functions. Lane 0 is inserted with budget 0,
+        i.e. inactive. Must run before :meth:`start`."""
         if self.running:
             raise RuntimeError("warmup() must run before start()")
         samp = {"greedy": True, "temperature": 1.0, "top_k": 0, "top_p": 1.0, "seed": 0}
@@ -418,9 +571,11 @@ class ContinuousBatchingEngine:
             _clone_cache(pre)
         halt = torch.full((self.ecfg.max_stop_tokens,), -1, dtype=torch.int32, device=self.device)
         self.state = self.insert_fn(self.state, pre, 1, 0, first, 0, samp, halt)
-        out = self.decode_chunk_fn(self.params, self.state)
-        self.decode_steps += self.ecfg.chunk_steps
-        self.state = out[0]
+        for fn in (self.decode_chunk_fn, self.decode_plain_fn):
+            if fn is not None:
+                out = fn(self.params, self.state)
+                self.decode_steps += self.ecfg.chunk_steps
+                self.state = out[0]
         self._deactivate(torch.zeros_like(self.state["active"]))
         out[3].cpu()  # completes the work
         return self
@@ -661,8 +816,13 @@ class ContinuousBatchingEngine:
             halt = torch.full((self.ecfg.max_stop_tokens,), -1, dtype=torch.int32)
             if req.stop_ids:
                 halt[:len(req.stop_ids)] = torch.tensor(req.stop_ids, dtype=torch.int32)
+            lane_ids = None
+            if self.ecfg.speculative_k and ids:  # embeddings prompts draft from generated tokens
+                lane_ids = torch.zeros((self.ecfg.max_len,), dtype=torch.int32)
+                lane_ids[:plen] = ids_t
+                lane_ids = lane_ids.to(self.device, non_blocking=True)
             self.state = self.insert_fn(self.state, pre_cache, plen, slot, first, budget, samp,
-                                        halt.to(self.device))
+                                        halt.to(self.device), lane_ids)
         except Exception as e:
             self._free.append(slot)  # don't leak the lane on a failed insert
             self._fail_all(e)
@@ -749,18 +909,62 @@ class ContinuousBatchingEngine:
             logger.exception("engine state re-init failed; engine is down")
             self._stopped = True
 
-    def _row_seeds(self, chunk_idx: int):
-        """Per lane, the (seed, first sample index) of this chunk's draws, or
-        None where the lane is empty or greedy; None when no lane samples.
-        A lane that is active at a chunk has emitted ``chunk_steps`` tokens
-        in each earlier chunk since it joined, so the index is known on the
-        host without reading the card."""
-        K = self.ecfg.chunk_steps
+    def _row_seeds(self):
+        """Per lane, the seed of its request's sampling stream, or None where
+        the lane is empty or greedy; None when no lane samples. The sample
+        index is not reckoned here: a speculative chunk emits 1 to ``1 + k``
+        tokens a lane a step, so the chunk functions read each lane's
+        ``emitted`` count on the card, as JAX keys its draws off it."""
         seeds = [None] * self.ecfg.slots
         for slot, req in self._by_slot.items():
             if not req.samp["greedy"]:
-                seeds[slot] = (req.samp["seed"], K * (chunk_idx - req.chunk_joined) + 1)
+                seeds[slot] = req.samp["seed"]
         return None if all(s is None for s in seeds) else seeds
+
+    def _pick_decode_fn(self):
+        """Epsilon-greedy bandit over {spec, plain}, keyed by the busy-lane
+        count; an arm's reward is the measured tokens/s of its chunks at
+        that count. Unseen arms are probed first; the losing arm is
+        re-probed on every 32nd pick at that count. Returns ``(fn, mode)``."""
+        mode0 = "spec" if self.ecfg.speculative_k else "plain"
+        if self.decode_plain_fn is None:
+            return self.decode_chunk_fn, mode0
+        bucket = len(self._by_slot)
+        ks, kp = ("spec", bucket), ("plain", bucket)
+        if self._mode_seen.get(ks, 0) == 0:
+            return self.decode_chunk_fn, "spec"
+        if self._mode_seen.get(kp, 0) == 0:
+            return self.decode_plain_fn, "plain"
+        spec_better = self._mode_ema[ks] >= self._mode_ema[kp]
+        # the pick counter (not the sample counts, which stall while rewards
+        # are dropped as admission-polluted) drives the re-probe
+        picks = self._mode_picks.get(bucket, 0) + 1
+        self._mode_picks[bucket] = picks
+        if picks % 32 == 0:
+            spec_better = not spec_better
+        if spec_better:
+            return self.decode_chunk_fn, "spec"
+        return self.decode_plain_fn, "plain"
+
+    def _note_mode_result(self, mode: str, bucket: int, toks_per_s: float) -> None:
+        key = (mode, bucket)
+        self._mode_seen[key] = self._mode_seen.get(key, 0) + 1
+        prev = self._mode_ema.get(key)
+        self._mode_ema[key] = toks_per_s if prev is None else 0.8 * prev + 0.2 * toks_per_s
+
+    def _reward(self, mode: str, bucket: int, dispatch_t: float, polluted, n_valid: int) -> None:
+        """Feed one chunk's tokens/s to the bandit. Its time runs from the
+        previous fetch while the pipeline was full (the card busy back to
+        back), else from its dispatch. A window with admissions measures
+        prefill work on top of the chunk, so its reward is dropped, except
+        as an arm's first sample at that count: under steady churn every
+        window has admissions, and an unseen arm must still be measured."""
+        now = time.perf_counter()
+        t0 = self._last_fetch_t if self._last_fetch_t is not None else dispatch_t
+        dt = max(now - max(t0, dispatch_t), 1e-6)
+        if not polluted or (mode, bucket) not in self._mode_seen:
+            self._note_mode_result(mode, bucket, n_valid / dt)
+        self._last_fetch_t = now
 
     def _loop(self) -> None:
         with torch.no_grad():
@@ -772,7 +976,9 @@ class ContinuousBatchingEngine:
         card's work on chunk N+1. Results (finishes, lane frees, stream
         callbacks) therefore lag one chunk; a finished lane decodes one more
         chunk with active=False, emitting only masked-invalid rows."""
-        pending = None  # (chunk_idx, host toks, host valid, host active, event)
+        # (chunk_idx, (host toks, valid, active), event, mode, dispatch time,
+        #  busy lanes, admissions before the dispatch)
+        pending = None
         while not self._stopped:
             # retire lanes whose occupant has CERTAINLY exhausted its budget
             # in the chunks already dispatched; EOS-terminated requests free
@@ -789,6 +995,7 @@ class ContinuousBatchingEngine:
             # admit as many waiting requests as there are free lanes; block
             # only when fully idle
             block = not self._by_slot and pending is None
+            admits = 0  # admissions this pass (they pollute the chunk's timing)
             while self._free:
                 try:
                     req = self._queue.get(block=block, timeout=0.1 if block else None)
@@ -802,6 +1009,7 @@ class ContinuousBatchingEngine:
                     continue
                 try:
                     self._admit(req)
+                    admits += 1
                 except Exception as e:
                     req.error = e
                     req.done.set()
@@ -811,18 +1019,28 @@ class ContinuousBatchingEngine:
             if self._by_slot:
                 try:
                     chunk_idx = self.chunks_dispatched
-                    self.state, toks, valid, active = self.decode_chunk_fn(
-                        self.params, self.state, self._row_seeds(chunk_idx))
+                    fn, mode = self._pick_decode_fn()
+                    if mode == "spec":
+                        self.spec_chunks += 1
+                    else:
+                        self.plain_chunks += 1
+                    dispatch_t = time.perf_counter()
+                    self.state, toks, valid, active = fn(self.params, self.state,
+                                                         self._row_seeds())
                     self.chunks_dispatched += 1
                     self.decode_steps += self.ecfg.chunk_steps
                     self.active_history.append(len(self._by_slot))
-                    new_pending = (chunk_idx, *_to_host([toks, valid, active]))
+                    new_pending = (chunk_idx, *_to_host([toks, valid, active]), mode,
+                                   dispatch_t, len(self._by_slot), admits)
                 except Exception as e:
                     pending = None  # the failed run invalidates in-flight results
                     self._fail_all(e)
                     continue
+            else:
+                self._last_fetch_t = None  # the pipeline drained: timing restarts
             if pending is not None:
-                chunk_idx, (toks_h, valid_h, active_h), ev = pending
+                (chunk_idx, (toks_h, valid_h, active_h), ev, mode, dispatch_t, bucket,
+                 disp_admits) = pending
                 try:
                     if ev is not None:
                         ev.synchronize()
@@ -831,6 +1049,9 @@ class ContinuousBatchingEngine:
                     pending = None
                     self._fail_all(e)
                     continue
+                if self.decode_plain_fn is not None:
+                    self._reward(mode, bucket, dispatch_t, disp_admits or admits,
+                                 sum(map(sum, valid_l)))
                 self._route(toks_l, valid_l, chunk_idx)
                 # early-retired requests: route their final rows from this
                 # chunk, complete those whose last possible chunk this was

@@ -5,7 +5,8 @@ to the port's ``generate_text`` and to JAX's (``w4_matmul`` in interpret
 mode); requests are admitted mid-decode; a sampled request's stream depends
 on its seed only, not on its slot or its co-tenants; ``stop()`` fails what
 is left and leaves no zombie lane; an error of the engine's thread reaches
-the submitter; and the parts that wait for later slices raise.
+the submitter; and the optional parts build (speculation itself:
+``test_torch_engine_spec.py``).
 """
 
 from __future__ import annotations
@@ -260,11 +261,13 @@ def test_warmup_and_request_validation():
 
 
 def test_parts_of_later_slices_raise():
-    """Speculation (#15) still raises. The prefix cache builds, and an
+    """Speculation builds both chunk programs (the drafting one and, for the
+    adaptive bandit, the plain one). The prefix cache builds, and an
     embeddings prompt is checked at submit: it must be ``[S, hidden]``,
     fit the lane (it is never truncated) and come without ids."""
-    with pytest.raises(NotImplementedError, match="#15"):
-        _engine(speculative_k=2)
+    spec = _engine(speculative_k=2)
+    assert spec.decode_plain_fn is not None and spec.decode_chunk_fn is not spec.decode_plain_fn
+    assert "history" in spec.state and spec.spec_chunks == spec.plain_chunks == 0
     eng = _engine(prefix_cache_entries=2)
     assert eng.prefix_hits == eng.prefix_misses == 0 and not eng._prefix_cache
     with pytest.raises(ClientError, match="hidden dim"):

@@ -69,6 +69,13 @@ def test_walk_covers_the_lora_and_http_serving_modules():
         assert f"dreamllm_tpu_torch/{mod}.py" in names
 
 
+def test_walk_covers_the_vqa_driver_and_its_metrics():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("eval/vqa", "eval/metrics", "eval/mmbench", "eval/__init__",
+                "generation/__init__"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
+
+
 CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 
 
@@ -120,6 +127,9 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import dreamllm_tpu_torch.train.lora, dreamllm_tpu_torch.train.hp_search\n"
         "import dreamllm_tpu_torch.serve, dreamllm_tpu_torch.serve.batching\n"
         "import dreamllm_tpu_torch.eval.nlp, dreamllm_tpu_torch.utils.image\n"
+        "import dreamllm_tpu_torch.eval.vqa, dreamllm_tpu_torch.eval.metrics\n"
+        "import dreamllm_tpu_torch.eval.mmbench, dreamllm_tpu_torch\n"
+        "from dreamllm_tpu_torch import beam_search, generate_text_speculative\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )
