@@ -10,7 +10,8 @@ Phases, each on lines of its own; any failure exits non-zero:
 2. build: every ``dreamllm_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel (flash-attention forward and backward,
    fused 8-bit AdamW, w4a16 int4 matmul) against its plain PyTorch version
-   on the card at the shapes the main paths give it (the flash kernels and
+   on the card at the shapes the main paths give it, the SD-2.1 and SDXL
+   UNets' included (the flash kernels and
    the int4 matmul also twice, for equal bits; the 8-bit AdamW also on a
    conv kernel, which its caller blocks in HWIO order, and on the float32
    factors of a LoRA adapter), timed beside the plain version, PyTorch's
@@ -39,6 +40,21 @@ Phases, each on lines of its own; any failure exits non-zero:
    ``chat`` turn (one 224x224 image, 64 greedy tokens). The flash kernel's
    launches over each of these runs are checked against the counts derived
    from the UNet's configuration (10 a full UNet forward, 5 a shallow one);
+   then the model variants on the same decoder and CLIP tower:
+   DreamLLM-SDXL-7B (196 dream queries, a 2-layer MLP projector, the SDXL
+   head with its 2.6 B UNet in bf16 and its VAE in float32) writes the same
+   document with two 1024x1024 images (``generate_interleaved`` picks
+   ``sdxl_head_pipeline`` itself) and makes text-to-image (DDIM, 50 steps,
+   guidance 5.0, 1024 px, twice, the second timed; K1 140 a CFG UNet
+   forward: 70 self- and 70 cross-attentions over the 196 dream queries);
+   the CLIP text tower at ViT-L/14's width encodes 4 prompts and scores
+   them against the SDXL images (``clip_similarity``); three
+   DreamLLM-SDXL stage-1 creation steps (dream queries and projectors only,
+   batch 2 x 512, 1024 px); ControlNet on the SD-2.1 head
+   (``controlnet_pipeline``, DDIM 50 steps, guidance 7.5, 512 px, a
+   synthetic edge map; K1 14 a step) against ``sd_head_pipeline`` from the
+   same start latents, at conditioning scale 1 and 0; and three LLaVA-1.5-7B
+   stage-1 steps (the projector only, batch 2 x 2048, 336 px images);
 6. main path, training: the same parameters take three joint train steps
    (LM + diffusion loss, CLIP/UNet/VAE frozen, 8-bit AdamW with the fused
    kernel, full remat) through ``Trainer.train`` at batch 2 x 2048; losses,
@@ -271,17 +287,20 @@ def phase_build() -> None:
                 log(f"[build] {name}: {ln.strip()}")
 
 
-def _flash_case(name, b, hq, hkv, s, d, causal, with_lse, segments, gen):
-    """One shape set: kernel vs plain version, timings and bound."""
+def _flash_case(name, b, hq, hkv, s, d, causal, with_lse, segments, gen, skv=None):
+    """One shape set: kernel vs plain version, timings and bound. ``skv``:
+    the key length where it differs from the query length ``s`` (a
+    cross-attention)."""
     from dreamllm_tpu_torch.ops.attention import (
         flash_attention_cuda,
         flash_attention_reference,
     )
 
     dev = "cuda"
+    skv = skv or s
     q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, skv, hkv, d), generator=gen, device=dev).bfloat16()
     seg = None
     if segments is not None:
         seg = torch.tensor(segments, dtype=torch.int32, device=dev)
@@ -322,7 +341,7 @@ def _flash_case(name, b, hq, hkv, s, d, causal, with_lse, segments, gen):
     kt = k.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous()
     mask = None
-    keep = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+    keep = torch.ones((b, s, skv), dtype=torch.bool, device=dev)
     if causal:
         keep &= torch.ones((s, s), dtype=torch.bool, device=dev).tril()
     if seg is not None:
@@ -383,12 +402,13 @@ def flash_bwd_tile_share(q, k, v, do, out, lse, seg, causal, scale):
     )
 
     b, s, hq, d = q.shape
+    skv = k.shape[1]
     counts = flash_bwd_tiles_computed(q, k, v, do, out, lse, seg, seg, causal=causal,
                                       sm_scale=scale)
     share = {}
     for label, (qt, kt) in zip(("dkv", "dq"), bwd_tiles(d)):
         rule = tuple(hq * (b if x is None else 1)
-                     * flash_bwd_tile_pairs(x, x, s, s, causal=causal, q_tile=qt, k_tile=kt)
+                     * flash_bwd_tile_pairs(x, x, s, skv, causal=causal, q_tile=qt, k_tile=kt)
                      .sum().item() for x in (seg, None))
         if counts[label] != rule:
             raise AssertionError(f"flash_bwd: {label} pass computed/causal tile pairs "
@@ -397,10 +417,11 @@ def flash_bwd_tile_share(q, k, v, do, out, lse, seg, causal, scale):
     return share
 
 
-def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
+def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen, skv=None):
     """One shape set of the backward kernel: dQ, dK, dV against the plain
     version from the same (q, k, v, dO, O, LSE), timings and bound. O and the
-    LSE come from the forward kernel, as on the training path."""
+    LSE come from the forward kernel, as on the training path. ``skv``: as
+    in :func:`_flash_case`."""
     from dreamllm_tpu_torch.ops.attention import (
         flash_attention_bwd_cuda,
         flash_attention_bwd_reference,
@@ -408,9 +429,10 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
     )
 
     dev = "cuda"
+    skv = skv or s
     q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, skv, hkv, d), generator=gen, device=dev).bfloat16()
     do = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
     seg = None
     if segments is not None:
@@ -453,7 +475,7 @@ def _flash_bwd_case(name, b, hq, hkv, s, d, causal, segments, gen):
     vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous().requires_grad_()
     dot = do.transpose(1, 2).contiguous()
     mask = None
-    keep = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+    keep = torch.ones((b, s, skv), dtype=torch.bool, device=dev)
     if causal:
         keep &= torch.ones((s, s), dtype=torch.bool, device=dev).tril()
     if seg is not None:
@@ -724,13 +746,19 @@ def phase_kernels() -> dict:
         # the UNet's spatial self-attention at 512 px (CFG batch 2)
         ("unet64x64 B2 H5 S4096 D64", 2, 5, 5, 4096, 64, False, False, None),
         ("unet32x32 B2 H10 S1024 D64", 2, 10, 10, 1024, 64, False, False, None),
+        # the SDXL UNet's spatial self-attention at 1024 px (CFG batch 2)
+        ("sdxl64x64 B2 H10 S4096 D64", 2, 10, 10, 4096, 64, False, False, None),
+        ("sdxl32x32 B2 H20 S1024 D64", 2, 20, 20, 1024, 64, False, False, None),
+        # and its cross-attention over DreamLLM-SDXL's 196 dream queries
+        ("sdxl64x64-cross B2 H10 S4096 Skv196 D64", 2, 10, 10, 4096, 64, False, False, None),
+        ("sdxl32x32-cross B2 H20 S1024 Skv196 D64", 2, 20, 20, 1024, 64, False, False, None),
         # the decoder's shapes (training and cache-free forwards)
         ("causal B1 H32 S2048 D128 lse", 1, 32, 32, 2048, 128, True, True, None),
         ("causal-gqa-seg B2 Hq32 Hkv8 S1024 D128", 2, 32, 8, 1024, 128, True, True, segs),
         # the 7B training batch: two rows, the second packed with a padding tail
         ("train causal-seg B2 H32 S2048 D128 lse", 2, 32, 32, 2048, 128, True, True, segs2k),
     ]
-    results = [_flash_case(*c, gen) for c in cases]
+    results = [_flash_case(*c, gen, skv=196 if "cross" in c[0] else None) for c in cases]
     bwd_cases = [
         # the decoder's training shapes
         ("causal B1 H32 S2048 D128", 1, 32, 32, 2048, 128, True, None),
@@ -739,8 +767,13 @@ def phase_kernels() -> dict:
         # the UNet's spatial self-attention at 512 px (training batch 2)
         ("unet64x64 B2 H5 S4096 D64", 2, 5, 5, 4096, 64, False, None),
         ("unet32x32 B2 H10 S1024 D64", 2, 10, 10, 1024, 64, False, None),
+        # the SDXL UNet's at 1024 px (the SDXL creation step, batch 2)
+        ("sdxl64x64 B2 H10 S4096 D64", 2, 10, 10, 4096, 64, False, None),
+        ("sdxl32x32 B2 H20 S1024 D64", 2, 20, 20, 1024, 64, False, None),
+        ("sdxl64x64-cross B2 H10 S4096 Skv196 D64", 2, 10, 10, 4096, 64, False, None),
+        ("sdxl32x32-cross B2 H20 S1024 Skv196 D64", 2, 20, 20, 1024, 64, False, None),
     ]
-    bwd = [_flash_bwd_case(*c, gen) for c in bwd_cases]
+    bwd = [_flash_bwd_case(*c, gen, skv=196 if "cross" in c[0] else None) for c in bwd_cases]
     adam = [_adam_case(name, shape, gen) for name, shape in (
         ("w_gate [4096, 11008]", (4096, 11008)),
         ("wq [4096, 4096]", (4096, 4096)),
@@ -895,18 +928,22 @@ def _small_chat_and_t2i(cfg, head_cfg, params, head, gen) -> None:
         f"(max-abs {t2i_err:.3e})")
 
 
+def _redraw_conv(conv, gen) -> None:
+    """Redraw a conv's weight at its fan-in scale, in place, from ``gen``."""
+    from dreamllm_tpu_torch.models.sd.blocks import init_conv
+
+    cout, cin, kh, kw = conv["w"].shape  # OIHW
+    with torch.no_grad():
+        new = init_conv(kh, kw, cin, cout, conv["w"].dtype, conv["w"].device, gen)
+        conv["w"].copy_(new["w"])
+
+
 def _live_conv_out(head, head_cfg, gen) -> None:
     """Redraw the UNet's ``conv_out`` at its fan-in scale, in place, from
     ``gen``. Its initial std of 1e-5 leaves the UNet's output next to nothing
     on random weights: the images would then follow their start latents, and
     neither a card-vs-CPU limit nor DeepCache's drift would see the UNet."""
-    from dreamllm_tpu_torch.models.sd.blocks import init_conv
-
-    conv = head["unet"]["conv_out"]
-    cout, cin, kh, kw = conv["w"].shape  # OIHW
-    with torch.no_grad():
-        new = init_conv(kh, kw, cin, cout, conv["w"].dtype, conv["w"].device, gen)
-        conv["w"].copy_(new["w"])
+    _redraw_conv(head["unet"]["conv_out"], gen)
 
 
 def phase_main(profile_dir: str | None = None) -> dict:
@@ -925,7 +962,7 @@ def phase_main(profile_dir: str | None = None) -> dict:
     log(f"[main] DreamLLM-7B ({cfg.llm.num_hidden_layers} decoder layers) + SD-2.1, bf16: "
         f"{n_params / 1e9:.3f} B parameters built in {time.perf_counter() - t0:.2f} s")
     model = (params, cfg, head, head_cfg)
-    launches = _document(model, sd_head_pipeline, 1, gen, "main")
+    launches, _ = _document(model, sd_head_pipeline, 1, gen, "main")
     if profile_dir:
         _profile_main(params, cfg, head, head_cfg, profile_dir)
     return launches, model
@@ -934,42 +971,56 @@ def phase_main(profile_dir: str | None = None) -> dict:
 DOC_STEPS, DOC_IMAGES, DOC_SEGMENT = 20, 2, 32  # the document: 2 images of 20 DPM steps
 
 
-def _document(model, pipeline, deepcache_interval: int, gen, label: str) -> dict:
-    """One interleaved document with two 512x512 images (``pipeline`` makes
-    them, at ``deepcache_interval``), timed; the flash kernel's launches over
-    the run must equal the UNet's flash sites of every full and shallow
-    step."""
+def _document(model, pipeline, deepcache_interval: int, gen, label: str) -> tuple[dict, list]:
+    """One interleaved document with two images at the head's own size
+    (``pipeline`` makes them, at ``deepcache_interval``; with ``pipeline``
+    None, ``generate_interleaved`` picks the head's pipeline itself, as it
+    does for an SDXL head), timed; the flash kernel's launches over the run
+    must equal the UNet's flash sites of every full and shallow step."""
+    import dreamllm_tpu_torch.generation.interleaved as interleaved_mod
     from dreamllm_tpu_torch.generation.interleaved import InterleavedConfig, generate_interleaved
     from dreamllm_tpu_torch.generation.sampler import SamplingConfig
     from dreamllm_tpu_torch.ops.attention import flash_attention
 
     params, cfg, head, head_cfg = model
     steps, n_images, seg = DOC_STEPS, DOC_IMAGES, DOC_SEGMENT
+    side = _head_side(head_cfg)
     icfg = InterleavedConfig(
         max_new_tokens=seg * (n_images + 1), max_images=n_images,
         num_inference_steps=steps, guidance_scale=3.5, sampler="dpm",
-        image_height=512, image_width=512, append_image_span=True,
+        image_height=side, image_width=side, append_image_span=True,
         force_image_interval=seg,
         sampling=SamplingConfig(greedy=True, eos_token_id=-1),
     )
     ids = torch.randint(10, 31000, (1, 16), generator=gen, device="cuda")
     image_s = [0.0]
 
-    def timed_pipeline(*a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        img = pipeline(*a, deepcache_interval=deepcache_interval, **kw)
-        torch.cuda.synchronize()
-        image_s[0] += time.perf_counter() - t
-        return img
+    def timed(fn, **extra):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            img = fn(*a, **extra, **kw)
+            torch.cuda.synchronize()
+            image_s[0] += time.perf_counter() - t
+            return img
 
+        return run
+
+    real_sdxl = interleaved_mod.sdxl_head_pipeline
+    if pipeline is None:
+        interleaved_mod.sdxl_head_pipeline = timed(real_sdxl)
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     t = time.perf_counter()
-    with torch.no_grad():
-        doc = generate_interleaved(params, cfg, head, head_cfg, ids, icfg, gen,
-                                   pipeline_fn=timed_pipeline, device="cuda")
-    torch.cuda.synchronize()
+    try:
+        with torch.no_grad():
+            doc = generate_interleaved(
+                params, cfg, head, head_cfg, ids, icfg, gen, device="cuda",
+                pipeline_fn=None if pipeline is None else timed(
+                    pipeline, deepcache_interval=deepcache_interval))
+        torch.cuda.synchronize()
+    finally:
+        interleaved_mod.sdxl_head_pipeline = real_sdxl
     doc_s = time.perf_counter() - t
     launches = flash_attention.launches
 
@@ -978,20 +1029,21 @@ def _document(model, pipeline, deepcache_interval: int, gen, label: str) -> dict
     if len(imgs) != n_images or len(texts) != n_images + 1:
         raise AssertionError(f"[{label}] {len(imgs)} images, {len(texts)} text segments")
     for img in imgs:
-        _check_image(img, label)
-    want = n_images * pipeline_flash_launches(head_cfg.unet, steps, deepcache_interval)
+        _check_image(img, label, (side, side, 3))
+    want = n_images * pipeline_flash_launches(head_cfg.unet, steps, deepcache_interval,
+                                              cfg.n_dream_queries)
     if launches != want:
         raise AssertionError(f"[{label}] flash kernel launched {launches} times, want {want}")
     decoded = icfg.max_new_tokens
     other_s = doc_s - image_s[0]
     peak = torch.cuda.max_memory_allocated()
     log(f"[{label}] document (DeepCache interval {deepcache_interval}): {doc_s:.3f} s; images "
-        f"{image_s[0]:.3f} s ({image_s[0] / n_images:.3f} s each, {steps} dpm steps, CFG batch "
-        f"2); text+spans {other_s:.3f} s for {decoded} decoded tokens "
+        f"{image_s[0]:.3f} s ({image_s[0] / n_images:.3f} s each, {side}x{side}, {steps} dpm "
+        f"steps, CFG batch 2); text+spans {other_s:.3f} s for {decoded} decoded tokens "
         f"({decoded / other_s:.2f} tokens/s, prefill, dream and span appends included)")
     log(f"[{label}] text segments {[len(x) for x in texts]}; flash launches {launches}; "
         f"peak memory {peak / 2**30:.2f} GiB")
-    return {"flash_fwd": launches}
+    return {"flash_fwd": launches}, imgs
 
 
 def _check_image(img, label: str, shape=(512, 512, 3)) -> None:
@@ -1051,7 +1103,7 @@ def phase_t2i(model) -> tuple[dict, dict]:
 
     images, launches, walls = {}, {}, {}
     for interval in (1, 2):
-        want = pipeline_flash_launches(head_cfg.unet, T2I_STEPS, interval)
+        want = pipeline_flash_launches(head_cfg.unet, T2I_STEPS, interval, cfg.n_dream_queries)
         walls[interval] = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1085,7 +1137,7 @@ def phase_document_dc2(model) -> dict:
     from dreamllm_tpu_torch.models.sd.head import sd_head_pipeline
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return _document(model, sd_head_pipeline, 2, gen, "main-dc2")
+    return _document(model, sd_head_pipeline, 2, gen, "main-dc2")[0]
 
 
 def phase_chat(model) -> dict:
@@ -1125,6 +1177,360 @@ def phase_chat(model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Model variants: DreamLLM-SDXL, ControlNet, the CLIP text tower
+# ---------------------------------------------------------------------------
+
+SDXL_T2I_GUIDANCE = 5.0  # sdxl_head_pipeline's default, as JAX's
+
+
+def _head_side(head_cfg) -> int:
+    """The image side a head makes by default: its latents times the VAE's
+    factor (512 for SD 2.1, 1024 for SDXL)."""
+    return head_cfg.unet.sample_size * 2 ** (len(head_cfg.vae.block_out_channels) - 1)
+
+
+def _sdxl_model(model, gen) -> tuple:
+    """DreamLLM-SDXL-7B (``configs.dreamllm_sdxl_7b``, bf16) on the card:
+    the decoder's and the CLIP tower's tensors are DreamLLM-7B's (``model``;
+    the shapes agree, and the rotary tables follow the positions, not
+    ``max_position_embeddings``); the MLP projector, the 196 dream queries
+    and the SDXL head are drawn from ``gen``, the UNet's ``conv_out`` at its
+    fan-in scale."""
+    from dreamllm_tpu_torch.configs import dreamllm_sdxl_7b
+    from dreamllm_tpu_torch.models.projector import init_projector_params
+    from dreamllm_tpu_torch.models.sd.sdxl import init_sdxl_head_params
+
+    params7 = model[0]
+    cfg, head_cfg = dreamllm_sdxl_7b(torch.bfloat16)
+    h = cfg.llm.hidden_size
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = {
+            "llm": params7["llm"],
+            "clip_vision_embedding": {
+                "clip": params7["clip_vision_embedding"]["clip"],
+                "projector": init_projector_params(cfg.projector_cfg(), generator=gen,
+                                                   device="cuda"),
+            },
+            # drawn as init_dreamllm_params draws them
+            "dream_embedding": {"queries": (torch.randn((cfg.n_dream_queries, h), generator=gen,
+                                                        device="cuda") * h ** -0.5
+                                            ).to(cfg.llm.dtype)},
+        }
+        head = init_sdxl_head_params(head_cfg, generator=gen, device="cuda")
+        _live_conv_out(head, head_cfg, gen)
+    torch.cuda.synchronize()
+    n_new = (sum(t.numel() for t in _leaves(head)) + params["dream_embedding"]["queries"].numel()
+             + sum(t.numel() for t in _leaves(params["clip_vision_embedding"]["projector"])))
+    log(f"[sdxl] DreamLLM-SDXL-7B: the 7B decoder and CLIP tower shared, {n_new / 1e9:.3f} B "
+        f"new parameters (SDXL UNet {sum(t.numel() for t in _leaves(head['unet'])) / 1e9:.3f} "
+        f"B bf16, VAE float32) built in {time.perf_counter() - t0:.2f} s")
+    return params, cfg, head, head_cfg
+
+
+def phase_sdxl(model, profile_dir: str | None = None) -> tuple[dict, dict, tuple, list]:
+    """DreamLLM-SDXL-7B serving (:func:`_sdxl_model`): one interleaved
+    document as the main path's (16-token prompt, two 1024x1024 images of
+    20 DPM-Solver++ steps at CFG 3.5, 96 tokens) with ``generate_interleaved``
+    choosing ``sdxl_head_pipeline`` itself, then text-to-image as
+    ``projects/dreamllm/inference.py`` makes it for an SDXL head
+    (``encode_prompt_embeds`` of the prompt and the negative prompt, then
+    ``sdxl_head_pipeline``: DDIM, 50 steps, guidance 5.0, 1024 px) twice from
+    the same start latents, the second run timed. K1: 140 launches a CFG
+    UNet forward (``unet_flash_sites``: 70 self-attentions, and as many
+    cross-attentions, whose 196 dream-query keys pass the flash rule).
+    ``profile_dir``: then profile one CFG UNet step (kernel sums only).
+    Returns the launches of both paths, the model and the three images."""
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.models.dreamllm import encode_prompt_embeds
+    from dreamllm_tpu_torch.models.sd.sdxl import sdxl_head_pipeline
+    from dreamllm_tpu_torch.ops.attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sdxl = _sdxl_model(model, gen)
+    params, cfg, head, head_cfg = sdxl
+    sites = unet_flash_sites(head_cfg.unet, 2, cfg.n_dream_queries)[0]
+    doc_launches, images = _document(sdxl, None, 1, gen, "sdxl")
+
+    tok = ToyTokenizer()
+    side, lat = _head_side(head_cfg), head_cfg.unet.sample_size
+    latents = torch.randn((1, lat, lat, head_cfg.unet.in_channels), generator=gen, device="cuda")
+    flash_attention.launches = 0
+    with torch.no_grad():
+        cond = encode_prompt_embeds(params, cfg, tok, T2I_PROMPT + POSITIVE_SUFFIX)
+        neg = encode_prompt_embeds(params, cfg, tok, NEGATIVE_PROMPT)
+    if cond.shape != (1, cfg.n_dream_queries, cfg.llm.hidden_size) or neg.shape != cond.shape:
+        raise AssertionError(f"[sdxl-t2i] prompt states of shapes {tuple(cond.shape)}, "
+                             f"{tuple(neg.shape)}")
+    if flash_attention.launches != 0:
+        raise AssertionError(f"[sdxl-t2i] the prompts launched K1 {flash_attention.launches} "
+                             "times, want 0")
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        with torch.no_grad():
+            img = sdxl_head_pipeline(head, head_cfg, cond, neg, gen, height=side,
+                                     width=side, num_inference_steps=T2I_STEPS,
+                                     guidance_scale=SDXL_T2I_GUIDANCE, sampler="ddim",
+                                     latents=latents)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        launches = flash_attention.launches
+        _check_image(img[0], "sdxl-t2i", (side, side, 3))
+        if launches != T2I_STEPS * sites:
+            raise AssertionError(f"[sdxl-t2i] K1 launched {launches} times, want "
+                                 f"{T2I_STEPS * sites}")
+    peak = torch.cuda.max_memory_allocated()
+    if profile_dir:
+        from dreamllm_tpu_torch.models.projector import projector_forward
+        from dreamllm_tpu_torch.models.sd.sdxl import _pooled, make_add_time_ids
+        from dreamllm_tpu_torch.models.sd.unet import unet_forward
+
+        with torch.no_grad():
+            states = torch.cat([neg, cond], dim=0)
+            ctx = projector_forward(head["projector"], head_cfg.projector_cfg(), states)
+            added = {"time_ids": make_add_time_ids((side, side), (0, 0), (side, side), 2,
+                                                   device="cuda"),
+                     "text_embeds": _pooled(head, head_cfg, states)}
+            lat_in = torch.cat([latents, latents], dim=0).to(ctx.dtype)
+            tt = torch.full((2,), 500, device="cuda")
+            _profile(lambda: unet_forward(head["unet"], head_cfg.unet, lat_in, tt, ctx,
+                                          added_cond=added),
+                     "sdxl_unet_cfg_step", profile_dir, trace=False, top=12)
+    log(f"[sdxl-t2i] sdxl_head_pipeline {walls[1]:.3f} s for one {side}x{side} image "
+        f"({T2I_STEPS} ddim steps, guidance {SDXL_T2I_GUIDANCE}, CFG batch 2; second of two runs, "
+        f"the first {walls[0]:.3f} s); flash launches {launches} a run; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    return doc_launches, {"flash_fwd": launches}, sdxl, images + [img[0]]
+
+
+def phase_clip_text(model, images: list) -> dict:
+    """The CLIP text tower at ViT-L/14's width (``CLIPTextConfig()``, bf16,
+    seeded) on 4 prompts tokenised by id (``<|startoftext|>`` 49406, the
+    caption, ``<|endoftext|>`` 49407, padding 0, 77 positions), then
+    ``clip_similarity`` of those prompts against ``clip_pooled_output`` of
+    ``images`` through DreamLLM-7B's CLIP tower (random visual and text
+    projections to 768, ``logit_scale`` as a checkpoint stores it, log 100).
+    Checks: shapes, finite values, logits within the scale, attention at 77
+    positions on the plain path (K1 0), and each row of the batch within
+    1e-2 relative of the same prompt computed alone, on a float32 copy of
+    the same weights: in bf16 a prompt's pooled state lies about 1e-2 from
+    its float32 value whatever the batch (rounding through 12 random
+    layers), so the bf16 distances are logged beside it, not held."""
+    from dreamllm_tpu_torch.models.clip import (
+        clip_pooled_output,
+        clip_preprocess,
+        clip_vision_forward,
+    )
+    from dreamllm_tpu_torch.models.clip_text import (
+        CLIPTextConfig,
+        clip_similarity,
+        clip_text_forward,
+        init_clip_text_params,
+    )
+    from dreamllm_tpu_torch.models.llama import dense_init
+    from dreamllm_tpu_torch.ops.attention import flash_attention
+    from dreamllm_tpu_torch.train.tree import tree_map
+
+    params, cfg = model[0], model[1]
+    tcfg = CLIPTextConfig(dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        tparams = init_clip_text_params(tcfg, generator=gen, device="cuda")
+    ids = torch.zeros((4, tcfg.max_position_embeddings), dtype=torch.long, device="cuda")
+    for row, length in enumerate((7, 12, 20, 33)):
+        ids[row, 0] = 49406
+        ids[row, 1:length - 1] = torch.randint(1, 49406, (length - 2,), generator=gen,
+                                               device="cuda")
+        ids[row, length - 1] = 49407
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        hidden, pooled = clip_text_forward(tparams, tcfg, ids)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t
+    if (tuple(hidden.shape) != (4, 77, 768) or tuple(pooled.shape) != (4, 768)
+            or not bool(torch.isfinite(hidden).all())):
+        raise AssertionError(f"[clip-text] shapes {tuple(hidden.shape)}, {tuple(pooled.shape)} "
+                             "or non-finite values")
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    cfg32 = CLIPTextConfig(dtype=torch.float32)
+    params32 = tree_map(lambda x: x.float(), tparams)
+    rel32, rel16, vs32 = [], [], []
+    with torch.no_grad():
+        pooled32 = clip_text_forward(params32, cfg32, ids)[1]
+        for row in range(4):
+            alone32 = clip_text_forward(params32, cfg32, ids[row:row + 1])[1][0]
+            alone16 = clip_text_forward(tparams, tcfg, ids[row:row + 1])[1][0]
+            rel32.append(rel(pooled32[row], alone32))
+            rel16.append(rel(pooled[row], alone16))
+            vs32.append(rel(alone16, alone32))
+    del params32
+    if not max(rel32) <= 1e-2:
+        raise AssertionError(f"[clip-text] a float32 row differs from the prompt alone by "
+                             f"{max(rel32)} relative (limit 1e-2)")
+
+    vis = params["clip_vision_embedding"]["clip"]
+    with torch.no_grad():
+        pixels = clip_preprocess(torch.stack(images), cfg.vision.image_size)
+        image_embeds = clip_pooled_output(vis, cfg.vision, clip_vision_forward(vis, cfg.vision,
+                                                                                pixels))
+        vproj = dense_init((cfg.vision.hidden_size, tcfg.projection_dim), torch.bfloat16, "cuda",
+                           gen)
+        tproj = dense_init((tcfg.hidden_size, tcfg.projection_dim), torch.bfloat16, "cuda", gen)
+        logits = clip_similarity(image_embeds, pooled, vproj, tproj,
+                                 torch.tensor(math.log(100.0), device="cuda")).float()
+    if (tuple(logits.shape) != (len(images), 4) or not bool(torch.isfinite(logits).all())
+            or float(logits.abs().max()) > 100.0 * 1.01):
+        raise AssertionError(f"[clip-text] logits of shape {tuple(logits.shape)}: {logits}")
+    if flash_attention.launches != 0:
+        raise AssertionError(f"[clip-text] K1 launched {flash_attention.launches} times, want 0")
+    log(f"[clip-text] clip_text_forward B4 x 77 (ViT-L/14 text, 12 layers, bf16): "
+        f"{text_s * 1e3:.2f} ms; logits_per_image {tuple(logits.shape)} of the SDXL images in "
+        f"[{float(logits.min()):.2f}, {float(logits.max()):.2f}]")
+    log(f"[clip-text] pooled rows vs the prompt alone, relative: float32 "
+        f"{[f'{r:.2e}' for r in rel32]} (limit 1e-2); bf16 {[f'{r:.2e}' for r in rel16]}; "
+        f"bf16 alone vs float32 alone {[f'{r:.2e}' for r in vs32]}")
+    return {"flash_fwd": flash_attention.launches}
+
+
+CONTROLNET_STEPS, CONTROLNET_GUIDANCE = 50, 7.5  # controlnet_pipeline's defaults: DDIM, 7.5
+
+
+def _edge_map(gen, side: int) -> torch.Tensor:
+    """A seeded synthetic edge map ``[1, side, side, 3]`` in {0, 1}: the
+    2-pixel outlines of 12 random rectangles."""
+    img = torch.zeros((side, side), device="cuda")
+    for _ in range(12):
+        y0, x0 = torch.randint(0, side - 64, (2,), generator=gen, device="cuda").tolist()
+        h, w = torch.randint(32, side // 2, (2,), generator=gen, device="cuda").tolist()
+        y1, x1 = min(y0 + h, side - 2), min(x0 + w, side - 2)
+        img[y0:y1 + 2, x0:x0 + 2] = img[y0:y1 + 2, x1:x1 + 2] = 1.0
+        img[y0:y0 + 2, x0:x1 + 2] = img[y1:y1 + 2, x0:x1 + 2] = 1.0
+    return img[None, :, :, None].expand(1, side, side, 3).contiguous()
+
+
+def phase_controlnet(model, profile_dir: str | None = None) -> dict:
+    """ControlNet on DreamLLM-7B's SD-2.1 head (its UNet's ``conv_out`` live
+    since :func:`phase_t2i`) (``configs.controlnet_7b``,
+    bf16, seeded; its zero convs and its embedder's last conv redrawn at
+    their fan-in scale, so that the residuals are seen): the prompt pair of
+    the t2i phase, a synthetic edge map at 512 px, ``controlnet_pipeline``
+    (DDIM 50 steps, guidance 7.5) at conditioning scale 1 and 0, and
+    ``sd_head_pipeline`` with the same settings and start latents, in the
+    order plain, scale 1, scale 0, plain, scale 1 (the last one timed).
+    Checks: the scale-1 image differs from the plain one; the scale-0 image
+    is within the two plain runs' own distance of the plain one (and whether
+    the bits are equal is logged); K1 launches 14 a ControlNet step (10 in
+    the UNet, 4 in the encoder at 64x64 and 32x32), 10 a plain step.
+    ``profile_dir``: then profile one CFG step, ControlNet and UNet (kernel
+    sums only)."""
+    from dreamllm_tpu_torch.configs import controlnet_7b
+    from dreamllm_tpu_torch.data.tokenization import ToyTokenizer
+    from dreamllm_tpu_torch.models.dreamllm import encode_prompt_embeds
+    from dreamllm_tpu_torch.models.sd.controlnet import init_controlnet_params
+    from dreamllm_tpu_torch.models.sd.head import controlnet_pipeline, sd_head_pipeline
+    from dreamllm_tpu_torch.ops.attention import flash_attention
+
+    params, cfg, head, head_cfg = model
+    ccfg = controlnet_7b(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cn = init_controlnet_params(ccfg, generator=gen, device="cuda")
+        for conv in cn["zero_convs"] + [cn["mid_zero_conv"], cn["cond_embedding"]["conv_out"]]:
+            _redraw_conv(conv, gen)
+    torch.cuda.synchronize()
+    log(f"[controlnet] {sum(t.numel() for t in _leaves(cn)) / 1e9:.3f} B parameters built in "
+        f"{time.perf_counter() - t0:.2f} s; {len(cn['zero_convs'])} zero convs + the mid one")
+    side, lat = _head_side(head_cfg), head_cfg.unet.sample_size
+    control = _edge_map(gen, side)
+    latents = torch.randn((1, lat, lat, head_cfg.unet.in_channels), generator=gen, device="cuda")
+    tok = ToyTokenizer()
+    with torch.no_grad():
+        cond = encode_prompt_embeds(params, cfg, tok, T2I_PROMPT + POSITIVE_SUFFIX)
+        neg = encode_prompt_embeds(params, cfg, tok, NEGATIVE_PROMPT)
+    unet_sites = unet_flash_sites(head_cfg.unet, 2, cfg.n_dream_queries)[0]
+    cn_sites = controlnet_flash_sites(ccfg.unet, 2, cfg.n_dream_queries)
+
+    def run(scale):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        with torch.no_grad():
+            if scale is None:
+                img = sd_head_pipeline(head, head_cfg, cond, neg, gen, height=side, width=side,
+                                       num_inference_steps=CONTROLNET_STEPS,
+                                       guidance_scale=CONTROLNET_GUIDANCE, sampler="ddim",
+                                       latents=latents)
+            else:
+                img = controlnet_pipeline(head, head_cfg, cn, ccfg, control, cond, neg, gen,
+                                          num_inference_steps=CONTROLNET_STEPS,
+                                          guidance_scale=CONTROLNET_GUIDANCE,
+                                          conditioning_scale=scale, latents=latents)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        want = CONTROLNET_STEPS * (unet_sites + (0 if scale is None else cn_sites))
+        if flash_attention.launches != want:
+            raise AssertionError(f"[controlnet] scale {scale}: K1 launched "
+                                 f"{flash_attention.launches} times, want {want}")
+        _check_image(img[0], "controlnet", (side, side, 3))
+        return img[0], wall, flash_attention.launches
+
+    torch.cuda.reset_peak_memory_stats()
+    plain_a, plain_s, _ = run(None)
+    cn_a, cn_first_s, cn_launches = run(1.0)
+    zero, _, _ = run(0.0)
+    plain_b, _, _ = run(None)
+    cn_b, cn_s, _ = run(1.0)
+    peak = torch.cuda.max_memory_allocated()
+    if profile_dir:
+        from dreamllm_tpu_torch.models.projector import projector_forward
+        from dreamllm_tpu_torch.models.sd.controlnet import controlnet_forward
+        from dreamllm_tpu_torch.models.sd.unet import unet_forward
+
+        with torch.no_grad():
+            ctx = projector_forward(head["projector"], head_cfg.projector_cfg(),
+                                    torch.cat([neg, cond], dim=0))
+            lat_in = torch.cat([latents, latents], dim=0).to(ctx.dtype)
+            tt = torch.full((2,), 500, device="cuda")
+            cimg2 = torch.cat([control, control], dim=0)
+
+            def step():
+                down, mid = controlnet_forward(cn, ccfg, lat_in, tt, ctx, cimg2)
+                return unet_forward(head["unet"], head_cfg.unet, lat_in, tt, ctx,
+                                    down_block_residuals=down, mid_block_residual=mid)
+
+            _profile(step, "controlnet_cfg_step", profile_dir, trace=False, top=12)
+    plain_gap = (plain_a - plain_b).abs().max().item()
+    zero_gap = max((zero - plain_a).abs().max().item(), (zero - plain_b).abs().max().item())
+    moved = (cn_a - plain_a).abs().mean().item()
+    if not zero_gap <= plain_gap:
+        raise AssertionError(f"[controlnet] scale 0 is {zero_gap} from the plain image, two plain "
+                             f"runs {plain_gap} from each other")
+    if not moved > 1e-3:
+        raise AssertionError(f"[controlnet] the ControlNet image is {moved} (mean |delta|) from "
+                             "the plain one: the residuals are not seen")
+    log(f"[controlnet] controlnet_pipeline {cn_s:.3f} s for one {side}x{side} image "
+        f"({CONTROLNET_STEPS} ddim steps, guidance {CONTROLNET_GUIDANCE}, CFG batch 2; the "
+        f"first run {cn_first_s:.3f} s); sd_head_pipeline alone {plain_s:.3f} s; K1 "
+        f"{cn_launches} a run ({unet_sites} + {cn_sites} a step); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[controlnet] scale 1 vs plain: mean |delta| {moved:.4e}; scale 0 vs plain: max |delta| "
+        f"{zero_gap:.3e} ({'equal bits' if torch.equal(zero, plain_a) else 'not equal bits'}), "
+        f"plain vs plain {plain_gap:.3e} "
+        f"({'equal bits' if torch.equal(plain_a, plain_b) else 'not equal bits'}); scale 1 "
+        f"twice: {'equal bits' if torch.equal(cn_a, cn_b) else 'not equal bits'}")
+    return {"flash_fwd": cn_launches}
+
+
+# ---------------------------------------------------------------------------
 # Training phases
 # ---------------------------------------------------------------------------
 
@@ -1133,8 +1539,9 @@ FROZEN = ("clip_vision_embedding/clip", "sd_head/unet", "sd_head/vae")  # the SF
 
 def _joint_batch(cfg, gen, *, batch, seq, image_px, dream_px, dtype, device):
     """``batch`` rows of ``seq`` tokens: one input image span and one dream
-    span each, labels on the text only; the last row is packed from two
-    segments and ends in a padding tail."""
+    span each (no dream span for a model without dream queries: LLaVA),
+    labels on the text only; the last row is packed from two segments and
+    ends in a padding tail."""
     st = cfg.special_tokens
     n_img, n_q = cfg.image_embed_len, cfg.n_dream_queries
     ids = torch.randint(10, 31000, (batch, seq), generator=gen, device=device)
@@ -1143,10 +1550,11 @@ def _joint_batch(cfg, gen, *, batch, seq, image_px, dream_px, dtype, device):
     ids[:, 0] = st.bos
     ids[:, img_at - 1], ids[:, img_at + n_img] = st.im_start, st.im_end
     ids[:, img_at:img_at + n_img] = st.im_patch
-    ids[:, dream_at - 1], ids[:, dream_at + n_q] = st.dream_start, st.dream_end
-    ids[:, dream_at:dream_at + n_q] = st.dream
     labels[:, img_at - 1:img_at + n_img + 1] = -100
-    labels[:, dream_at - 1:dream_at + n_q + 1] = -100
+    if n_q:
+        ids[:, dream_at - 1], ids[:, dream_at + n_q] = st.dream_start, st.dream_end
+        ids[:, dream_at:dream_at + n_q] = st.dream
+        labels[:, dream_at - 1:dream_at + n_q + 1] = -100
     seg = torch.ones((batch, seq), dtype=torch.int32, device=device)
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None].repeat(batch, 1)
     cut, pad = seq * 5 // 8, seq // 40  # second segment and padding tail of the last row
@@ -1155,20 +1563,26 @@ def _joint_batch(cfg, gen, *, batch, seq, image_px, dream_px, dtype, device):
     pos[-1, cut:] = torch.arange(seq - cut, dtype=torch.int32, device=device)
     labels[-1, seq - pad:] = -100
     vs = cfg.vision.image_size
-    return {
+    out = {
         "input_ids": ids, "labels": labels, "segment_ids": seg, "positions": pos,
         "images": torch.randn((batch, 1, vs, vs, 3), generator=gen, device=device).to(dtype),
         "image_positions": torch.full((batch, 1), img_at, device=device),
-        "dream_positions": torch.full((batch, 1), dream_at, device=device),
-        "images_dm": (torch.rand((batch, 1, dream_px, dream_px, 3), generator=gen,
-                                 device=device) * 2 - 1).to(dtype),
     }
+    if n_q:
+        out["dream_positions"] = torch.full((batch, 1), dream_at, device=device)
+        out["images_dm"] = (torch.rand((batch, 1, dream_px, dream_px, 3), generator=gen,
+                                       device=device) * 2 - 1).to(dtype)
+    return out
 
 
-def _train_setup(cfg, head_cfg, params, device, opt_kw, wrap_tx=None):
+def _train_setup(cfg, head_cfg, params, device, opt_kw, wrap_tx=None, *, frozen=FROZEN,
+                 head_loss_fn=None):
     """The training entry points assembled as a user would: freeze mask ->
     optimizer -> state -> train step. ``wrap_tx`` may wrap the optimizer the
-    step calls (the state is initialised from the unwrapped one)."""
+    step calls (the state is initialised from the unwrapped one).
+    ``frozen``: the recipe's frozen prefixes (the SFT recipe's by default);
+    ``head_loss_fn``: the diffusion head's loss (default: the SD head's of
+    ``head_cfg``; none when ``head_cfg`` is None)."""
     import dataclasses
 
     from dreamllm_tpu_torch.models.dreamllm import param_freeze_mask
@@ -1176,13 +1590,14 @@ def _train_setup(cfg, head_cfg, params, device, opt_kw, wrap_tx=None):
     from dreamllm_tpu_torch.train.optim import OptimizerConfig, make_optimizer
     from dreamllm_tpu_torch.train.step import init_train_state, make_train_step
 
-    cfg = dataclasses.replace(cfg, frozen=FROZEN)
+    cfg = dataclasses.replace(cfg, frozen=frozen)
+    if head_loss_fn is None and head_cfg is not None:
+        head_loss_fn = make_head_loss_fn(head_cfg)
     mask = param_freeze_mask(params, cfg)
     tx = make_optimizer(OptimizerConfig(**opt_kw), trainable_mask=mask)
     state = init_train_state(params, tx, device=device)
-    step_fn = make_train_step(cfg, wrap_tx(tx) if wrap_tx else tx,
-                              head_loss_fn=make_head_loss_fn(head_cfg), remat=True,
-                              use_flash=True, trainable_mask=mask, device=device)
+    step_fn = make_train_step(cfg, wrap_tx(tx) if wrap_tx else tx, head_loss_fn=head_loss_fn,
+                              remat=True, use_flash=True, trainable_mask=mask, device=device)
     return cfg, mask, tx, state, step_fn
 
 
@@ -1655,42 +2070,64 @@ def phase_small_decode_variants() -> None:
         f"{vgot['score']}); smallest margin {min(vmargins):.3e}")
 
 
-def unet_flash_sites(unet_cfg, batch: int) -> tuple[int, bool]:
-    """How many of the UNet's spatial self-attentions pass the flash rule at
-    ``sample_size`` latents (one per transformer layer of every attention
-    block whose sequence is long enough), and whether the UNet's very first
-    self-attention is one of them."""
+def _level_q_shape(unet_cfg, level: int, batch: int) -> tuple:
+    """The query shape of the attentions of ``level`` at ``sample_size``
+    latents."""
+    side = unet_cfg.sample_size >> level
+    heads = unet_cfg.num_attention_heads[level]
+    return (batch, side * side, heads, unet_cfg.block_out_channels[level] // heads)
+
+
+def _level_flash_sites(unet_cfg, level: int, batch: int, ctx_len: int) -> int:
+    """Attentions that pass the flash rule in one attention block of
+    ``level`` at ``sample_size`` latents: per transformer layer its spatial
+    self-attention and its cross-attention over ``ctx_len`` context tokens
+    (64 dream queries stay outside the rule; SDXL's 196 pass it)."""
     from dreamllm_tpu_torch.ops.attention import flash_eligible
 
-    sites, first = 0, False
+    q = _level_q_shape(unet_cfg, level, batch)
+    kv = (batch, ctx_len) + q[2:]
+    return unet_cfg.transformer_layers_per_block[level] * (flash_eligible(q, q)
+                                                           + flash_eligible(q, kv))
+
+
+def unet_flash_sites(unet_cfg, batch: int, ctx_len: int) -> tuple[int, bool]:
+    """How many of the UNet's attentions pass the flash rule at
+    ``sample_size`` latents and ``ctx_len`` context tokens (per transformer
+    layer of every attention block: its self-attention and its
+    cross-attention, each where its shapes pass), and whether the UNet's
+    very first self-attention is one of them."""
+    from dreamllm_tpu_torch.ops.attention import flash_eligible
+
+    sites = 0
     n = len(unet_cfg.block_out_channels)
     for i, btype in enumerate(unet_cfg.down_block_types):
-        side = unet_cfg.sample_size >> i
-        d = unet_cfg.block_out_channels[i] // unet_cfg.num_attention_heads[i]
-        shape = (batch, side * side, unet_cfg.num_attention_heads[i], d)
-        per_block = unet_cfg.transformer_layers_per_block[i] * flash_eligible(shape, shape)
+        per_block = _level_flash_sites(unet_cfg, i, batch, ctx_len)
         if btype == "CrossAttnDownBlock2D":
             sites += unet_cfg.layers_per_block * per_block          # the down block
-            first = first or (i == 0 and per_block > 0)
         if unet_cfg.up_block_types[n - 1 - i] == "CrossAttnUpBlock2D":
             sites += (unet_cfg.layers_per_block + 1) * per_block    # its mirror up block
-    side = unet_cfg.sample_size >> (n - 1)
-    d = unet_cfg.block_out_channels[-1] // unet_cfg.num_attention_heads[-1]
-    shape = (batch, side * side, unet_cfg.num_attention_heads[-1], d)
-    sites += unet_cfg.transformer_layers_per_block[-1] * flash_eligible(shape, shape)  # mid
+    sites += _level_flash_sites(unet_cfg, n - 1, batch, ctx_len)    # mid
+    q = _level_q_shape(unet_cfg, 0, batch)
+    first = unet_cfg.down_block_types[0] == "CrossAttnDownBlock2D" and flash_eligible(q, q)
     return sites, first
 
 
-def unet_shallow_flash_sites(unet_cfg, batch: int) -> int:
-    """How many of DeepCache's shallow forward's self-attentions pass the
-    flash rule: those of the first down block and of the last up block, both
-    at the first level (``sample_size`` latents)."""
-    from dreamllm_tpu_torch.ops.attention import flash_eligible
+def controlnet_flash_sites(unet_cfg, batch: int, ctx_len: int) -> int:
+    """The flash sites of a ControlNet's encoder over ``unet_cfg``: those of
+    the UNet's cross-attention down blocks and of its mid block."""
+    n = len(unet_cfg.block_out_channels)
+    return (sum(unet_cfg.layers_per_block * _level_flash_sites(unet_cfg, i, batch, ctx_len)
+                for i, btype in enumerate(unet_cfg.down_block_types)
+                if btype == "CrossAttnDownBlock2D")
+            + _level_flash_sites(unet_cfg, n - 1, batch, ctx_len))
 
-    side = unet_cfg.sample_size
-    d = unet_cfg.block_out_channels[0] // unet_cfg.num_attention_heads[0]
-    shape = (batch, side * side, unet_cfg.num_attention_heads[0], d)
-    per_block = unet_cfg.transformer_layers_per_block[0] * flash_eligible(shape, shape)
+
+def unet_shallow_flash_sites(unet_cfg, batch: int, ctx_len: int) -> int:
+    """How many of DeepCache's shallow forward's attentions pass the flash
+    rule: those of the first down block and of the last up block, both at
+    the first level (``sample_size`` latents)."""
+    per_block = _level_flash_sites(unet_cfg, 0, batch, ctx_len)
     sites = 0
     if unet_cfg.down_block_types[0] == "CrossAttnDownBlock2D":
         sites += unet_cfg.layers_per_block * per_block
@@ -1699,43 +2136,39 @@ def unet_shallow_flash_sites(unet_cfg, batch: int) -> int:
     return sites
 
 
-def pipeline_flash_launches(unet_cfg, steps: int, deepcache_interval: int) -> int:
-    """Flash launches of one CFG ``sd_head_pipeline`` run: the full UNet's
-    sites on the steps ``i % k == 0`` (every step at interval 1), the shallow
-    forward's on the others."""
+def pipeline_flash_launches(unet_cfg, steps: int, deepcache_interval: int,
+                            ctx_len: int) -> int:
+    """Flash launches of one CFG pipeline run over ``ctx_len`` context
+    tokens: the full UNet's sites on the steps ``i % k == 0`` (every step at
+    interval 1), the shallow forward's on the others."""
     full = sum(1 for i in range(steps) if deepcache_interval <= 1 or i % deepcache_interval == 0)
-    return (full * unet_flash_sites(unet_cfg, 2)[0]
-            + (steps - full) * unet_shallow_flash_sites(unet_cfg, 2))
+    return (full * unet_flash_sites(unet_cfg, 2, ctx_len)[0]
+            + (steps - full) * unet_shallow_flash_sites(unet_cfg, 2, ctx_len))
 
 
-def phase_train(model: list, profile_dir: str | None = None) -> dict:
-    """``model``: ``[params, cfg, head, head_cfg]`` from the serving phase;
-    the list is emptied, so that the first step's superseded parameters are
-    freed and not kept alive by the caller. ``profile_dir``: after the three
-    steps, profile one more (kernel sums only: a step's trace is too long
-    to keep)."""
+def _train_run(label: str, cfg, head_cfg, box: list, *, opt_kw: dict, frozen: tuple,
+               head_loss_fn, batch: dict, steps: int, gen, flash_unet) -> dict:
+    """``steps`` train steps through ``Trainer.train`` on the parameters in
+    ``box`` (a one-element list, emptied, so that the caller keeps no
+    reference to the first step's superseded parameters), frozen by
+    ``frozen``, with full decoder remat and ``opt_kw``'s optimizer. Checks:
+    every loss, ``lm``/``vm`` term and gradient norm finite, no update
+    skipped, every emitted update finite and nonzero and applied wherever it
+    exceeds half an ulp of its parameter, every frozen parameter unchanged
+    bit for bit, the final checkpoint asked for once (recorded, not
+    written), and the kernels' launches equal to the counts from the
+    configuration: K1 twice and K2 once a decoder layer (remat reruns each
+    layer's forward), plus ``flash_unet = (forward, backward)`` sites of
+    the UNet, and K4 once per 8-bit moment leaf, each a step. Returns what
+    it measured."""
     from dreamllm_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_cuda
-    from dreamllm_tpu_torch.train.optim import (
-        GradientTransformation,
-        OptimizerConfig,
-        adam_state,
-        make_optimizer,
-    )
+    from dreamllm_tpu_torch.train.optim import GradientTransformation, adam_state
     from dreamllm_tpu_torch.train.optim8bit import _Moment, adam8bit_update_cuda
     from dreamllm_tpu_torch.train.trainer import Trainer, TrainerConfig
     from dreamllm_tpu_torch.train.tree import tree_leaves, tree_leaves_with_path, tree_map
 
     dev = "cuda"
-    steps, batch_rows, seq = 3, 2, 2048
-    params, cfg, head, head_cfg = model
-    model.clear()
-    params = {**params, "sd_head": head}
-    del head
-    # the SFT recipe's optimizer (lr 4e-5, cosine over 12000 steps, clip 1.0,
-    # no weight decay) with 8-bit moments; no warmup: its 200 warmup steps
-    # start at lr 0, and three steps would move nothing
-    opt_kw = dict(learning_rate=4e-5, schedule="cosine", warmup_steps=0, total_steps=12000,
-                  weight_decay=0.0, max_grad_norm=1.0, optimizer_8bit=True, fused_update=True)
+    batch_rows, seq = batch["input_ids"].shape
     # every emitted update finite and nonzero, and every leaf moved wherever
     # an update exceeds half a bf16 ulp of its parameter (parameters are bf16
     # with no float32 master copy, as in the JAX package: at lr 4e-5 a norm
@@ -1760,25 +2193,24 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
 
         return GradientTransformation(tx.init, update)
 
-    cfg, mask, tx, state, step_fn = _train_setup(cfg, head_cfg, params, dev, opt_kw, checked)
-    del params
+    cfg, mask, tx, state, step_fn = _train_setup(cfg, head_cfg, box.pop(), dev, opt_kw, checked,
+                                                 frozen=frozen, head_loss_fn=head_loss_fn)
     moments = [m for m in tree_leaves(adam_state(state.opt_state)["m"]) if isinstance(m, _Moment)]
     flat_mask = dict(tree_leaves_with_path(mask))
     n_trainable = sum(p.numel() for path, p in tree_leaves_with_path(state.params)
                       if flat_mask[path])
-    log(f"[train] {n_trainable / 1e9:.3f} B trainable parameters, {len(moments)} 8-bit moment "
-        f"leaves ({sum(m.codes.numel() for m in moments) / 1e9:.3f} B codes each for m and v)")
+    log(f"[{label}] {n_trainable / 1e9:.6f} B trainable parameters, {len(moments)} 8-bit "
+        f"moment leaves ({sum(m.codes.numel() for m in moments) / 1e9:.6f} B codes each for "
+        f"m and v)")
 
-    frozen = [(path, p) for path, p in tree_leaves_with_path(state.params) if not flat_mask[path]]
+    frozen_leaves = [(path, p) for path, p in tree_leaves_with_path(state.params)
+                     if not flat_mask[path]]
 
-    def checksum(p):  # exact: the sum of the raw 16-bit patterns
-        return p.contiguous().view(torch.int16).long().sum()
+    def checksum(p):  # exact: the sum of the raw bit patterns
+        return p.contiguous().view(torch.int16 if p.element_size() == 2 else torch.int32)\
+            .long().sum()
 
-    frozen_before = torch.stack([checksum(p) for _, p in frozen])
-
-    gen = torch.Generator(device=dev).manual_seed(1)
-    batch = _joint_batch(cfg, gen, batch=batch_rows, seq=seq, image_px=cfg.vision.image_size,
-                         dream_px=512, dtype=torch.bfloat16, device=dev)
+    frozen_before = torch.stack([checksum(p) for _, p in frozen_leaves])
 
     class Data:
         def __iter__(self):
@@ -1810,7 +2242,8 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
 
     trainer = RecordingTrainer(
         TrainerConfig(max_steps=steps, log_steps=1, save_steps=0, resume=False,
-                      output_dir="runs/chip_smoke_train", tokens_per_batch=batch_rows * seq),
+                      output_dir=f"runs/chip_smoke_{label}",
+                      tokens_per_batch=batch_rows * seq),
         step_fn, Data(), state, generator=gen, callbacks=[clock], device=dev)
     del state
     torch.cuda.synchronize()
@@ -1830,49 +2263,83 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
               for a in auxes]
     for i, row in enumerate(losses):
         if not all(math.isfinite(x) for x in row) or row[4] != 0.0:
-            raise AssertionError(f"[train] step {i + 1}: loss/lm/vm/grad_norm/skipped = {row}")
+            raise AssertionError(f"[{label}] step {i + 1}: loss/lm/vm/grad_norm/skipped = {row}")
     if int(final.step) != steps or int(adam_state(final.opt_state)["count"]) != steps:
-        raise AssertionError("[train] step counter or optimizer count did not reach 3")
+        raise AssertionError(f"[{label}] step counter or optimizer count did not reach {steps}")
     if saves != [steps]:  # save_steps=0: the final checkpoint only, as in JAX
-        raise AssertionError(f"[train] checkpoints asked for at steps {saves}, want [{steps}]")
+        raise AssertionError(f"[{label}] checkpoints asked for at steps {saves}, want [{steps}]")
     got_flags = torch.stack(flags).cpu()
     n_leaves = got_flags.shape[0] // steps
     for name, col in zip(("finite", "nonzero", "applied where they exceed half an ulp"),
                          got_flags.T[:3]):
         if not bool(col.all()):
-            raise AssertionError(f"[train] {int((~col).sum())} emitted updates were not {name}")
+            raise AssertionError(f"[{label}] {int((~col).sum())} emitted updates were not {name}")
     moved = got_flags[:, 3].reshape(steps, n_leaves).any(dim=0)
     frozen_after = [p for path, p in tree_leaves_with_path(final.params) if not flat_mask[path]]
-    if (any(a is not b for (_, a), b in zip(frozen, frozen_after))
+    if (any(a is not b for (_, a), b in zip(frozen_leaves, frozen_after))
             or not torch.equal(frozen_before, torch.stack([checksum(p) for p in frozen_after]))):
-        raise AssertionError("[train] a frozen parameter changed")
+        raise AssertionError(f"[{label}] a frozen parameter changed")
 
-    # launches per step, from the configuration: remat reruns each decoder
-    # layer's forward in the backward (K1 twice a layer, K2 once); the UNet
-    # is not checkpointed (K1 once a flash site); K4 once per 8-bit leaf. The
-    # UNet is frozen, and its very first self-attention runs before any
-    # cross-attention has brought the dream states in: nothing upstream of it
-    # needs a gradient, so autograd rightly asks no backward of that site.
     layers = cfg.llm.num_hidden_layers
-    sites, first_site = unet_flash_sites(head_cfg.unet, batch_rows)
-    want = {"flash_fwd": steps * (2 * layers + sites),
-            "flash_bwd": steps * (layers + sites - int(first_site)),
+    want = {"flash_fwd": steps * (2 * layers + flash_unet[0]),
+            "flash_bwd": steps * (layers + flash_unet[1]),
             "adam8bit": steps * len(moments)}
     if launches != want:
-        raise AssertionError(f"[train] kernel launches {launches}, want {want}")
+        raise AssertionError(f"[{label}] kernel launches {launches}, want {want}")
 
     tokens = batch_rows * seq
-    log(f"[train] {steps} steps at batch {batch_rows} x {seq}: step seconds "
+    log(f"[{label}] {steps} steps at batch {batch_rows} x {seq}: step seconds "
         f"{[round(t, 3) for t in step_s]} (the first includes the kernels' first use)")
-    log(f"[train] tokens/s {tokens / min(step_s):.1f} at the fastest step "
+    log(f"[{label}] tokens/s {tokens / min(step_s):.1f} at the fastest step "
         f"({tokens / (sum(step_s[1:]) / len(step_s[1:])):.1f} over steps 2-{steps})")
-    log(f"[train] peak memory {peak / 2**30:.2f} GiB")
-    log(f"[train] loss {[round(r[0], 4) for r in losses]} lm {[round(r[1], 4) for r in losses]} "
+    log(f"[{label}] peak memory {peak / 2**30:.2f} GiB")
+    log(f"[{label}] loss {[round(r[0], 4) for r in losses]} lm {[round(r[1], 4) for r in losses]} "
         f"vm {[round(r[2], 4) for r in losses]} grad_norm {[round(r[3], 4) for r in losses]}")
-    log(f"[train] launches over {steps} steps: {launches}; {n_leaves} trainable leaves updated "
+    log(f"[{label}] launches over {steps} steps: {launches}; {n_leaves} trainable leaves updated "
         f"a step, {int(moved.sum())} of them changed in some element "
         f"({n_leaves - int(moved.sum())} hold updates below half a bf16 ulp everywhere), "
-        f"{len(frozen)} frozen leaves unchanged")
+        f"{len(frozen_leaves)} frozen leaves unchanged")
+    return {"launches": launches, "final": final, "trainer": trainer, "step_fn": step_fn,
+            "mask": mask, "cfg": cfg}
+
+
+def phase_train(model: list, profile_dir: str | None = None) -> dict:
+    """``model``: ``[params, cfg, head, head_cfg]`` from the serving phase;
+    the list is emptied, so that the first step's superseded parameters are
+    freed and not kept alive by the caller. Three joint steps as the SFT
+    recipe trains (:func:`_train_run`). ``profile_dir``: after the three
+    steps, profile one more (kernel sums only: a step's trace is too long
+    to keep)."""
+    from dreamllm_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+    from dreamllm_tpu_torch.train.tree import tree_map
+
+    dev = "cuda"
+    steps, batch_rows, seq = 3, 2, 2048
+    params, cfg, head, head_cfg = model
+    model.clear()
+    params = {**params, "sd_head": head}
+    del head
+    # the SFT recipe's optimizer (lr 4e-5, cosine over 12000 steps, clip 1.0,
+    # no weight decay) with 8-bit moments; no warmup: its 200 warmup steps
+    # start at lr 0, and three steps would move nothing
+    opt_kw = dict(learning_rate=4e-5, schedule="cosine", warmup_steps=0, total_steps=12000,
+                  weight_decay=0.0, max_grad_norm=1.0, optimizer_8bit=True, fused_update=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = _joint_batch(cfg, gen, batch=batch_rows, seq=seq, image_px=cfg.vision.image_size,
+                         dream_px=512, dtype=torch.bfloat16, device=dev)
+    # The UNet is not checkpointed (K1 once a flash site). It is frozen, and
+    # its very first self-attention runs before any cross-attention has
+    # brought the dream states in: nothing upstream of it needs a gradient,
+    # so autograd rightly asks no backward of that site.
+    sites, first_site = unet_flash_sites(head_cfg.unet, batch_rows, cfg.n_dream_queries)
+    box = [params]
+    del params
+    out = _train_run("train", cfg, head_cfg, box, opt_kw=opt_kw, frozen=FROZEN,
+                     head_loss_fn=None, batch=batch, steps=steps, gen=gen,
+                     flash_unet=(sites, sites - int(first_site)))
+    step_fn, mask, final, trainer = out["step_fn"], out["mask"], out["final"], out["trainer"]
+    launches = out["launches"]
+    del out
 
     if profile_dir:
         box = [final]
@@ -1887,7 +2354,7 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
     # one full optimizer update (clip + 8-bit AdamW over every trainable
     # leaf), fused kernel against the unfused math, same state and gradients
     params_now, opt_state = final.params, final.opt_state
-    del final, trainer, auxes
+    del final, trainer
     grads = tree_map(lambda p, m: (torch.randn(p.shape, generator=gen, device=dev,
                                                dtype=torch.float32) * 1e-3).to(p.dtype)
                      if m else None, params_now, mask)
@@ -1907,6 +2374,105 @@ def phase_train(model: list, profile_dir: str | None = None) -> dict:
     log(f"[train] optimizer update, unfused: {min(times['unfused']):.2f} ms "
         f"(runs {[round(t, 2) for t in times['unfused']]})")
     return launches
+
+
+# projects/dreamllm_sdxl/configs/stage1_creation.py: LLM, CLIP (trunk and
+# projector), UNet and VAE frozen; the dream queries, the SD projector and the
+# global projector train, diffusion loss only, lr 2e-3 cosine over 8000 steps
+SDXL_FROZEN = ("llm", "clip_vision_embedding", "sd_head/unet", "sd_head/vae")
+
+
+def _creation_batch(cfg, gen, *, batch: int, seq: int, dream_px: int) -> dict:
+    """Creation-only rows (stage 1's i2t probability is 0): ``bos``, a
+    caption, one dream span with its ``dream_px`` image and the image's
+    ``add_time_ids`` (its own size, no crop), labels on the caption; the
+    last row ends in a padding tail."""
+    from dreamllm_tpu_torch.models.sd.sdxl import make_add_time_ids
+
+    st, n_q, dev = cfg.special_tokens, cfg.n_dream_queries, "cuda"
+    ids = torch.randint(10, 31000, (batch, seq), generator=gen, device=dev)
+    ids[:, 0] = st.bos
+    dream_at = seq - n_q - 24
+    ids[:, dream_at - 1], ids[:, dream_at + n_q] = st.dream_start, st.dream_end
+    ids[:, dream_at:dream_at + n_q] = st.dream
+    labels = ids.clone()
+    labels[:, dream_at - 1:] = -100
+    seg = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    seg[-1, seq - seq // 40:] = 0
+    side = (dream_px, dream_px)
+    return {
+        "input_ids": ids, "labels": labels, "segment_ids": seg,
+        "positions": torch.arange(seq, dtype=torch.int32, device=dev)[None].repeat(batch, 1),
+        "dream_positions": torch.full((batch, 1), dream_at, device=dev),
+        "images_dm": (torch.rand((batch, 1) + side + (3,), generator=gen, device=dev) * 2
+                      - 1).bfloat16(),
+        "add_time_ids": make_add_time_ids(side, (0, 0), side, batch, device=dev)[:, None],
+    }
+
+
+def phase_sdxl_train(sdxl: list) -> dict:
+    """Three DreamLLM-SDXL stage-1 creation steps (``SDXL_FROZEN``, ``lm``
+    weight 0, ``vm`` 1, lr 2e-3 without the recipe's 200 warmup steps, 8-bit
+    AdamW, full decoder remat) through ``Trainer.train`` (:func:`_train_run`)
+    at batch 2 x 512, one 1024 px image a row (the recipe's batch 16 cut to
+    fit the run). The UNet is frozen and not checkpointed: K1 and K2 once at
+    each of its 140 flash sites a step (70 self- and 70 cross-attentions),
+    every one of them downstream of a trainable projector (the
+    cross-attentions' keys through the SD projector, every block through
+    the global projector and the time embedding). ``sdxl``:
+    ``[params, cfg, head, head_cfg]`` of :func:`phase_sdxl`, emptied."""
+    import dataclasses
+
+    from dreamllm_tpu_torch.models.sd.sdxl import make_sdxl_head_loss_fn
+
+    params, cfg, head, head_cfg = sdxl
+    sdxl.clear()
+    params = {**params, "sd_head": head}
+    del head
+    cfg = dataclasses.replace(cfg, loss_weight_lm=0.0, loss_weight_vm=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch = _creation_batch(cfg, gen, batch=2, seq=512, dream_px=_head_side(head_cfg))
+    sites = unet_flash_sites(head_cfg.unet, 2, cfg.n_dream_queries)[0]
+    opt_kw = dict(learning_rate=2e-3, schedule="cosine", warmup_steps=0, total_steps=8000,
+                  weight_decay=0.0, max_grad_norm=1.0, optimizer_8bit=True, fused_update=True)
+    box = [params]
+    del params
+    return _train_run("sdxl-train", cfg, head_cfg, box, opt_kw=opt_kw, frozen=SDXL_FROZEN,
+                      head_loss_fn=make_sdxl_head_loss_fn(head_cfg), batch=batch, steps=3,
+                      gen=gen, flash_unet=(sites, sites))["launches"]
+
+
+def phase_llava_train(model) -> dict:
+    """Three LLaVA-1.5-7B stage-1 steps as ``projects/llava/configs/
+    pretrain.py`` trains (``configs.llava_7b``: the projector only, lr 2e-3
+    without warmup, 8-bit AdamW, full decoder remat) through
+    ``Trainer.train`` (:func:`_train_run`) at batch 2 x 2048, one 336 px
+    image (576 tokens) a row (the recipe's batch 16 cut to fit the run). The
+    decoder and the CLIP tower's layers are DreamLLM-7B's tensors
+    (``model``, frozen: read only); the tower's 577 position embeddings and
+    the 2-layer MLP projector are drawn from a seed. No UNet: K1 and K2 run
+    in the decoder only."""
+    from dreamllm_tpu_torch.configs import llava_7b
+    from dreamllm_tpu_torch.models.llama import dense_init
+    from dreamllm_tpu_torch.models.projector import init_projector_params
+
+    params7 = model[0]
+    cfg = llava_7b(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    vis7 = params7["clip_vision_embedding"]["clip"]
+    with torch.no_grad():
+        clip = {**vis7, "position_embedding": dense_init(
+            (cfg.vision.seq_len, cfg.vision.hidden_size), cfg.vision.dtype, "cuda", gen, 0.02)}
+        proj = init_projector_params(cfg.projector_cfg(), generator=gen, device="cuda")
+    box = [{"llm": params7["llm"], "clip_vision_embedding": {"clip": clip, "projector": proj}}]
+    del clip, proj
+    batch = _joint_batch(cfg, gen, batch=2, seq=2048, image_px=cfg.vision.image_size,
+                         dream_px=None, dtype=torch.bfloat16, device="cuda")
+    opt_kw = dict(learning_rate=2e-3, schedule="cosine", warmup_steps=0, total_steps=558_000 // 16,
+                  max_grad_norm=1.0, optimizer_8bit=True, fused_update=True)
+    return _train_run("llava-train", cfg, None, box, opt_kw=opt_kw, frozen=cfg.frozen,
+                      head_loss_fn=None, batch=batch, steps=3, gen=gen,
+                      flash_unet=(0, 0))["launches"]
 
 
 def _quantized_layouts(dense: dict) -> tuple[dict, dict]:
@@ -2963,7 +3529,11 @@ def _leaves(tree):
 # adam8bit take one train step's (the UNet's first 64x64 site needs no
 # backward, see phase_train); w4a16 one fused int4 decode step's. The QLoRA
 # paths' launches (flash_fwd, flash_bwd and adam8bit on its float32 factors
-# in training, w4a16 in serving) stand in ``launches_by_path``.
+# in training, w4a16 in serving) stand in ``launches_by_path``. MIXES adds
+# other paths' means: one SDXL UNet forward at 1024 px (unet_flash_sites'
+# 140: at 64x64 and at 32x32 10 and 60 self-attentions and as many
+# cross-attentions over the 196 dream queries) and its backward in the SDXL
+# creation step.
 KERNELS = {
     "flash_fwd": ("dreamllm_tpu_torch/csrc/flash_fwd.cu", "dreamllm_tpu/ops/attention.py:133",
                   (("unet64x64", 5), ("unet32x32", 5))),
@@ -2978,6 +3548,26 @@ KERNELS = {
 }
 
 
+_SDXL_UNET_MIX = (("sdxl64x64 ", 10), ("sdxl32x32 ", 60), ("sdxl64x64-cross", 10),
+                  ("sdxl32x32-cross", 60))
+MIXES = {"flash_fwd": {"sdxl_unet_forward": _SDXL_UNET_MIX},
+         "flash_bwd": {"sdxl_unet_backward": _SDXL_UNET_MIX}}
+
+
+def _mix_means(rows: list, mix: tuple) -> dict:
+    """``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` a launch over a
+    launch mix of ``(shape-name prefix, launches)``."""
+    picked = [(next(r for r in rows if r["shape"].startswith(prefix)), w) for prefix, w in mix]
+    total = sum(w for _, w in picked)
+
+    def mean(key):
+        if any(r[key] is None for r, _ in picked):
+            return None
+        return sum(r[key] * w for r, w in picked) / total
+
+    return {key: mean(key) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+
 def kernel_line(checks: dict, launches: dict) -> dict:
     """One entry per kernel. ``ms``, ``plain_ms``, ``library_ms`` (device
     times, :func:`device_ms`) and ``bound_ms`` are means per launch over the
@@ -2987,25 +3577,18 @@ def kernel_line(checks: dict, launches: dict) -> dict:
     out = []
     for name, (source, replaces, mix) in KERNELS.items():
         rows = checks[name]
-        picked = [(next(r for r in rows if r["shape"].startswith(prefix)), w)
-                  for prefix, w in mix]
-        total = sum(w for _, w in picked)
-
-        def mean(key):
-            if any(r[key] is None for r, _ in picked):
-                return None
-            return sum(r[key] * w for r, w in picked) / total
-
+        means = _mix_means(rows, mix)
         by_path = {path: counts[name] for path, counts in launches.items() if name in counts}
         extra = {"row_invariance": checks[f"{name}_row_invariance"]} \
             if f"{name}_row_invariance" in checks else {}
+        if name in MIXES:
+            extra["mixes"] = {label: _mix_means(rows, m) for label, m in MIXES[name].items()}
+        first = next(r for r in rows if r["shape"].startswith(mix[0][0]))
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-            "bound_by": picked[0][0]["bound_by"], "library_ms": mean("library_ms"),
-            "per_shape": rows, **extra,
+            "max_abs_err": max(r["max_abs_err"] for r in rows), **means,
+            "bound_by": first["bound_by"], "per_shape": rows, **extra,
         })
     return {"kernels": out}
 
@@ -3016,7 +3599,8 @@ def main() -> int:
                     help="stop after the kernel checks (no model run, serving or training)")
     ap.add_argument("--profile", metavar="DIR",
                     help="profile one UNet step, full and shallow, and one decode step "
-                         "(Chrome traces to DIR) and one train step (kernel sums only)")
+                         "(Chrome traces to DIR) and one train step, one SDXL UNet step "
+                         "and one ControlNet step (kernel sums only)")
     args = ap.parse_args()
 
     start = time.perf_counter()
@@ -3034,6 +3618,18 @@ def main() -> int:
         launches["t2i"], launches["t2i_deepcache2"] = phase_t2i(model)
         launches["serving_deepcache2"] = phase_document_dc2(model)
         launches["chat"] = phase_chat(model)
+        launches["sdxl_serving"], launches["sdxl_t2i"], sdxl, images = phase_sdxl(
+            model, args.profile)
+        launches["clip_text"] = phase_clip_text(model, images)
+        del images
+        sdxl = list(sdxl)  # phase_sdxl_train empties it
+        launches["sdxl_training"] = phase_sdxl_train(sdxl)
+        del sdxl
+        torch.cuda.empty_cache()
+        launches["controlnet"] = phase_controlnet(model, args.profile)
+        torch.cuda.empty_cache()
+        launches["llava_training"] = phase_llava_train(model)
+        torch.cuda.empty_cache()
         model = list(model)  # phase_train empties it: nothing here keeps the parameters alive
         launches["training"] = phase_train(model, args.profile)
         del model

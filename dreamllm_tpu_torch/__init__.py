@@ -23,6 +23,10 @@ from dreamllm_tpu_torch.generation.sampler import (
     generate_text,
     generate_text_speculative,
 )
+from dreamllm_tpu_torch.models.clip_text import clip_similarity, clip_text_forward
+from dreamllm_tpu_torch.models.llava import llava_forward
+from dreamllm_tpu_torch.models.sd import controlnet_pipeline, sdxl_head_pipeline
 
-__all__ = ["SamplingConfig", "beam_search", "generate_text", "generate_text_speculative",
-           "resolve_device"]
+__all__ = ["SamplingConfig", "beam_search", "clip_similarity", "clip_text_forward",
+           "controlnet_pipeline", "generate_text", "generate_text_speculative", "llava_forward",
+           "resolve_device", "sdxl_head_pipeline"]

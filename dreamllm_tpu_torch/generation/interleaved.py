@@ -1,10 +1,11 @@
 """Free-form interleaved text+image generation (port of
 ``dreamllm_tpu/generation/interleaved.py``).
 
-decode text → the model emits ``<dream_start>`` → the 64 learned dream
-queries go through the KV cache → their last hidden states condition the SD
-head → image → ``<dream_end>`` (+ optionally the CLIP-encoded image span) →
-decoding resumes, until EOS, a stop token or the budget.
+decode text → the model emits ``<dream_start>`` → the learned dream
+queries (64 for DreamLLM-7B, 196 for DreamLLM-SDXL) go through the KV
+cache → their last hidden states condition the diffusion head → image →
+``<dream_end>`` (+ optionally the CLIP-encoded image span) → decoding
+resumes, until EOS, a stop token or the budget.
 
 The stages are the JAX package's, run eagerly: a prefill, a per-token decode
 loop that reads each fed token back to the host to decide whether to stop
@@ -29,6 +30,7 @@ from dreamllm_tpu_torch.models.dreamllm import (
 )
 from dreamllm_tpu_torch.models.llama import init_kv_cache, llama_forward, llama_logits
 from dreamllm_tpu_torch.models.sd.head import SDHeadConfig, sd_head_pipeline
+from dreamllm_tpu_torch.models.sd.sdxl import SDXLHeadConfig, sdxl_head_pipeline
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +95,7 @@ def generate_interleaved(
     *,
     prompt_images: torch.Tensor | None = None,       # [1, M, H, W, 3] CLIP-normalized
     prompt_image_positions: torch.Tensor | None = None,
-    pipeline_fn=None,                                # default sd_head_pipeline
+    pipeline_fn=None,                                # default: by the head config
     device="cuda",
 ) -> dict:
     """Returns ``{"segments": [("text", ids) | ("image", img)], "images":
@@ -102,7 +104,9 @@ def generate_interleaved(
 
     ``pipeline_fn(head_params, head_cfg, cond, uncond, generator, *,
     height, width, num_inference_steps, guidance_scale, sampler)`` makes
-    the image (default :func:`sd_head_pipeline`). ``generator`` drives
+    the image; by default :func:`sdxl_head_pipeline` for an
+    :class:`SDXLHeadConfig` (dual conditioning), :func:`sd_head_pipeline`
+    for any other head. ``generator`` drives
     sampling and the image noise; it must live on ``device``. The
     parameters must already be on ``device``.
     """
@@ -111,7 +115,9 @@ def generate_interleaved(
         raise ValueError(f"parameters are on {params['llm']['embed_tokens'].device}, not {dev}")
     if input_ids.shape[0] != 1:
         raise ValueError("interleaved generation is batch-1")
-    pipeline_fn = pipeline_fn or sd_head_pipeline
+    if pipeline_fn is None:
+        pipeline_fn = (sdxl_head_pipeline if isinstance(head_cfg, SDXLHeadConfig)
+                       else sd_head_pipeline)
     llm = cfg.llm
     st = cfg.special_tokens
     scfg = icfg.sampling
@@ -162,13 +168,13 @@ def generate_interleaved(
         if reason != _DREAM or len(images) >= icfg.max_images:
             break
 
-        # ---- <dream_start>: append the 64 dream queries ----
+        # ---- <dream_start>: append the dream queries ----
         q = params["dream_embedding"]["queries"][None].to(params["llm"]["embed_tokens"].dtype)
         o = llama_forward(params["llm"], llm, inputs_embeds=q,
                           segment_ids=torch.ones((1, cfg.n_dream_queries), dtype=torch.int32,
                                                  device=dev),
                           positions=ar(cur_pos, cfg.n_dream_queries), kv_cache=cache)
-        cond = o["last_hidden_state"]  # [1, 64, H]
+        cond = o["last_hidden_state"]  # [1, n_dream_queries, H]
         cur_pos += cfg.n_dream_queries
 
         img = pipeline_fn(

@@ -1,1 +1,2 @@
-"""LLaMA decoder, CLIP vision tower, projectors and the DreamLLM assembly."""
+"""LLaMA decoder, CLIP vision and text towers, projectors, the DreamLLM
+assembly and its LLaVA variant."""

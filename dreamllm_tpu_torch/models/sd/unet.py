@@ -1,4 +1,4 @@
-"""UNet2DConditionModel, SD-2.1 configuration (port of
+"""UNet2DConditionModel, SD-2.1 and SDXL configurations (port of
 ``dreamllm_tpu/models/sd/unet.py``). Latents are NHWC at the boundary.
 
 The spatial self-attention of each transformer block goes through
@@ -12,8 +12,19 @@ enters the last (shallowest) up block, and :func:`unet_forward_shallow`
 reuses it on the steps between two full ones, where only ``conv_in``, the
 first down block and the last up block run: at 512 px that is the 64x64
 level's 2 down and 3 up self-attentions, 5 flash launches of the full
-forward's 10. SDXL's text-time embedding and ControlNet residuals are not
-ported yet.
+forward's 10.
+
+SDXL (:func:`sdxl_unet_config`): three levels, 1 / 2 / 10 transformer
+layers, cross-attention width 2048, and the "text_time" addition embedding
+(``added_cond``: six micro-conditioning ids embedded sinusoidally, after the
+pooled text embedding, through ``add_embedding``, added to the time
+embedding). At 1024 px its 64x64 (S 4096, 10 heads) and 32x32 (S 1024, 20
+heads) levels pass the flash rule: 70 self-attentions a forward.
+
+ControlNet: ``unet_forward(down_block_residuals=, mid_block_residual=)``
+adds one residual to each skip after the down blocks and one to the mid
+block's output, as diffusers' ``down_block_additional_residuals`` and
+``mid_block_additional_residual`` do.
 """
 
 from __future__ import annotations
@@ -68,11 +79,32 @@ class UNetConfig:
     num_attention_heads: tuple[int, ...] = (5, 10, 20, 20)
     cross_attention_dim: int = 1024
     norm_num_groups: int = 32
+    # SDXL's "text_time" addition: temb += linear_2(silu(linear_1(cat(
+    #   pooled text embeds, sinusoidal(add_time_ids)))))
+    addition_embed_type: str | None = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     dtype: torch.dtype = torch.float32
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+
+def sdxl_unet_config(**kw) -> UNetConfig:
+    """SDXL-base's UNet (128x128 latents, 1024 px); ``kw`` overrides."""
+    defaults = dict(
+        sample_size=128,
+        block_out_channels=(320, 640, 1280),
+        down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+        transformer_layers_per_block=(1, 2, 10),
+        num_attention_heads=(5, 10, 20),
+        cross_attention_dim=2048,
+        addition_embed_type="text_time",
+    )
+    defaults.update(kw)
+    return UNetConfig(**defaults)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +188,11 @@ def init_unet_params(cfg: UNetConfig, *, generator: torch.Generator | None = Non
         },
         "conv_in": init_conv(3, 3, cfg.in_channels, ch[0], d, dev, gen),
     }
+    if cfg.addition_embed_type == "text_time":
+        p["add_embedding"] = {
+            "linear_1": init_dense(cfg.projection_class_embeddings_input_dim, ted, d, dev, gen),
+            "linear_2": init_dense(ted, ted, d, dev, gen),
+        }
 
     down = []
     cin = ch[0]
@@ -220,13 +257,32 @@ def init_unet_params(cfg: UNetConfig, *, generator: torch.Generator | None = Non
 # ---------------------------------------------------------------------------
 
 
-def _time_embedding(params: Params, cfg: UNetConfig, timesteps: torch.Tensor,
-                    sample: torch.Tensor) -> torch.Tensor:
+def _unet_time_embedding(params: Params, cfg: UNetConfig, timesteps: torch.Tensor,
+                         added_cond: dict | None, sample: torch.Tensor) -> torch.Tensor:
+    """The time embedding, plus SDXL's text-time embedding of ``added_cond``
+    (``time_ids [B, 6]``, ``text_embeds [B, pooled]``) on a "text_time"
+    UNet: one implementation for the full, shallow and ControlNet
+    forwards. As in JAX, the text-time input is the concatenation in the
+    promoted dtype of ``text_embeds`` and ``sample``, and so is its sum with
+    the time embedding."""
     if timesteps.ndim == 0:
         timesteps = timesteps.expand(sample.shape[0])
     temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(sample.dtype)
     te = params["time_embedding"]
-    return dense(F.silu(dense(temb, te["linear_1"])), te["linear_2"])
+    temb = dense(F.silu(dense(temb, te["linear_1"])), te["linear_2"])
+    if cfg.addition_embed_type == "text_time":
+        if added_cond is None:
+            raise ValueError("an SDXL UNet needs added_cond {'time_ids', 'text_embeds'}")
+        tids = added_cond["time_ids"]
+        tid_emb = timestep_embedding(tids.reshape(-1), cfg.addition_time_embed_dim)
+        tid_emb = tid_emb.reshape(tids.shape[0], -1).to(sample.dtype)
+        text = added_cond["text_embeds"]
+        dt = torch.promote_types(text.dtype, tid_emb.dtype)
+        add = torch.cat([text.to(dt), tid_emb.to(dt)], dim=-1)
+        ae = params["add_embedding"]
+        add = dense(F.silu(dense(add, ae["linear_1"])), ae["linear_2"])
+        temb = temb.to(torch.promote_types(temb.dtype, add.dtype)) + add
+    return temb
 
 
 def _down_resnets(blk, n_heads, groups, h, temb, ctx) -> list:
@@ -265,17 +321,24 @@ def unet_forward(
     sample: torch.Tensor,                 # [B, H, W, in_ch] latents (NHWC)
     timesteps: torch.Tensor,              # [B] or scalar
     encoder_hidden_states: torch.Tensor,  # [B, S_ctx, cross_attention_dim]
-    remat: bool = False,
+    added_cond: dict | None = None,       # SDXL: {"time_ids": [B, 6], "text_embeds": [B, 1280]}
     return_deep: bool = False,
+    down_block_residuals: tuple | None = None,        # ControlNet: one a skip
+    mid_block_residual: torch.Tensor | None = None,   # ControlNet
+    remat: bool = False,
 ):
     """``remat``: checkpoint each down, mid and up block
     (``torch.utils.checkpoint``, non-reentrant): the backward keeps only the
-    activations at block boundaries and recomputes inside a block.
+    activations at block boundaries and recomputes inside a block; the
+    ControlNet residuals are added outside the checkpointed blocks.
     ``return_deep``: return ``(out, deep)``, ``deep`` the input of the last
-    up block (DeepCache's cached feature)."""
+    up block (DeepCache's cached feature). ``down_block_residuals`` (one a
+    skip, in the order the down blocks stack them: ``conv_in``'s output
+    first) and ``mid_block_residual`` are cast to the skip's dtype and
+    added."""
     g = cfg.norm_num_groups
     heads = cfg.num_attention_heads
-    temb = _time_embedding(params, cfg, timesteps, sample)
+    temb = _unet_time_embedding(params, cfg, timesteps, added_cond, sample)
     ctx = encoder_hidden_states.to(sample.dtype)
 
     def ckpt(fn, *args):
@@ -301,7 +364,15 @@ def unet_forward(
         skips.extend(outs)
         h = outs[-1]
 
+    if down_block_residuals is not None:
+        if len(down_block_residuals) != len(skips):
+            raise ValueError(f"{len(down_block_residuals)} down-block residuals for "
+                             f"{len(skips)} skips")
+        skips = [s + r.to(s.dtype) for s, r in zip(skips, down_block_residuals)]
+
     h = ckpt(mid_blk, params["mid"], h, temb, ctx)
+    if mid_block_residual is not None:
+        h = h + mid_block_residual.to(h.dtype)
 
     rev_heads = list(reversed(heads))
     deep = None
@@ -323,6 +394,7 @@ def unet_forward_shallow(
     timesteps: torch.Tensor,              # [B] or scalar
     encoder_hidden_states: torch.Tensor,  # [B, S_ctx, cross_attention_dim]
     deep_feature: torch.Tensor,           # cached input of the last up block
+    added_cond: dict | None = None,
 ) -> torch.Tensor:
     """DeepCache's cached step: ``conv_in`` and the first down block's
     resnets (and transformers) give fresh skips, and the last up block runs
@@ -332,7 +404,7 @@ def unet_forward_shallow(
     skipped."""
     g = cfg.norm_num_groups
     n_heads = cfg.num_attention_heads[0]
-    temb = _time_embedding(params, cfg, timesteps, sample)
+    temb = _unet_time_embedding(params, cfg, timesteps, added_cond, sample)
     ctx = encoder_hidden_states.to(sample.dtype)
     h = conv2d(sample, params["conv_in"])
     skips = [h] + _down_resnets(params["down"][0], n_heads, g, h, temb, ctx)

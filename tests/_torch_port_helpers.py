@@ -53,6 +53,23 @@ UNET = dict(sample_size=32, block_out_channels=(64, 64),
 VAE = dict(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4)
 
 
+def config_fields(cfg) -> dict:
+    """A config's fields as nested dicts and lists, without its dtypes (the
+    packages' dtype types differ) and without JAX's ``dream_projector_dim``,
+    which the port's ``DreamLLMConfig`` lacks (only an SD head sets it;
+    asserted None)."""
+    import dataclasses
+
+    def drop(d):
+        if isinstance(d, dict):
+            return {k: drop(v) for k, v in d.items() if not k.endswith("dtype")}
+        return list(d) if isinstance(d, tuple) else d
+
+    fields = drop(dataclasses.asdict(cfg))
+    assert fields.pop("dream_projector_dim", None) is None
+    return fields
+
+
 def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -115,6 +132,132 @@ def head_params(seed=1):
     jc, pc = head_cfgs()
     jp = jhead.init_sd_head_params(jax.random.PRNGKey(seed), jc)
     return jc, pc, jp, to_port(jp, phead.init_sd_head_params(pc, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# Model variants: the SDXL head, ControlNet, the CLIP text tower, LLaVA
+# ---------------------------------------------------------------------------
+
+# SDXL's layout (a DownBlock2D first, the text-time addition) at 32x32
+# latents; the second level's self-attention (16x16 = S 256, one head of
+# D 128) passes the flash rule
+SDXL_UNET = dict(sample_size=32, block_out_channels=(16, 128),
+                 down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+                 up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+                 layers_per_block=1, transformer_layers_per_block=(1, 2),
+                 num_attention_heads=(1, 1), cross_attention_dim=24, norm_num_groups=8,
+                 addition_embed_type="text_time", addition_time_embed_dim=8,
+                 projection_class_embeddings_input_dim=16 + 6 * 8)
+SDXL_HEAD = dict(llm_hidden_size=LLAMA["hidden_size"], pooled_dim=16)
+# one stride-2 block: the control image is at the 2-level VAE's factor, 2
+CONTROLNET = dict(conditioning_embedding_out_channels=(8, 16))
+CLIP_TEXT = dict(vocab_size=1000, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                 num_attention_heads=2, max_position_embeddings=16, projection_dim=24)
+
+
+def _fan_in(shape_hwio, seed):
+    kh, kw, cin, _ = shape_hwio
+    w = np.random.default_rng(seed).standard_normal(shape_hwio).astype(np.float32)
+    return w * (kh * kw * cin) ** -0.5
+
+
+@functools.lru_cache(maxsize=None)
+def live_head_params():
+    """``head_params()`` with the UNet's ``conv_out`` redrawn at its fan-in
+    scale (as ``sdxl_params`` does), so that an absolute check sees the
+    UNet."""
+    jc, pc, jp, _ = head_params()
+    conv = jp["unet"]["conv_out"]
+    w = jax.numpy.asarray(_fan_in(np.shape(conv["w"]), 13))
+    jp = {**jp, "unet": {**jp["unet"], "conv_out": {**conv, "w": w}}}
+    return jc, pc, jp, to_port(jp, phead.init_sd_head_params(pc, device="meta"))
+
+
+def sdxl_cfgs():
+    import dreamllm_tpu.models.sd.sdxl as jsdxl
+    import dreamllm_tpu_torch.models.sd.sdxl as psdxl
+
+    jc = jsdxl.SDXLHeadConfig(unet=junet.UNetConfig(**SDXL_UNET), vae=jvae.VAEConfig(**VAE),
+                              **SDXL_HEAD)
+    pc = psdxl.SDXLHeadConfig(unet=punet.UNetConfig(**SDXL_UNET), vae=pvae.VAEConfig(**VAE),
+                              **SDXL_HEAD)
+    return jc, pc
+
+
+@functools.lru_cache(maxsize=None)
+def sdxl_params(seed=2):
+    """The tiny SDXL head, JAX-initialised, with the UNet's ``conv_out``
+    redrawn at its fan-in scale (its std 1e-5 would leave the UNet's output
+    near 1e-4, below what an absolute 1e-4 check sees)."""
+    import dreamllm_tpu.models.sd.sdxl as jsdxl
+    import dreamllm_tpu_torch.models.sd.sdxl as psdxl
+
+    jc, pc = sdxl_cfgs()
+    jp = jsdxl.init_sdxl_head_params(jax.random.PRNGKey(seed), jc)
+    conv = jp["unet"]["conv_out"]
+    jp["unet"]["conv_out"] = {**conv, "w": jax.numpy.asarray(_fan_in(np.shape(conv["w"]), 12))}
+    return jc, pc, jp, to_port(jp, psdxl.init_sdxl_head_params(pc, device="meta"))
+
+
+def controlnet_cfgs():
+    import dreamllm_tpu.models.sd.controlnet as jcn
+    import dreamllm_tpu_torch.models.sd.controlnet as pcn
+
+    return (jcn.ControlNetConfig(unet=junet.UNetConfig(**UNET), **CONTROLNET),
+            pcn.ControlNetConfig(unet=punet.UNetConfig(**UNET), **CONTROLNET))
+
+
+@functools.lru_cache(maxsize=None)
+def controlnet_params(seed=3, live=True):
+    """A tiny ControlNet over ``head_params()``'s UNet, JAX-initialised.
+    ``live``: the embedder's ``conv_out`` and every zero conv redrawn at
+    their fan-in scale (zero-initialised, nothing downstream of them would
+    be seen); otherwise as ``init_controlnet_params`` leaves them."""
+    import dreamllm_tpu.models.sd.controlnet as jcn
+    import dreamllm_tpu_torch.models.sd.controlnet as pcn
+
+    jc, pc = controlnet_cfgs()
+    jp = jcn.init_controlnet_params(jax.random.PRNGKey(seed), jc)
+    if live:
+        def redraw(conv, s):
+            return {**conv, "w": jax.numpy.asarray(_fan_in(np.shape(conv["w"]), s))}
+
+        emb = jp["cond_embedding"]
+        jp = {**jp, "cond_embedding": {**emb, "conv_out": redraw(emb["conv_out"], 20)},
+              "zero_convs": [redraw(z, 21 + i) for i, z in enumerate(jp["zero_convs"])],
+              "mid_zero_conv": redraw(jp["mid_zero_conv"], 40)}
+    return jc, pc, jp, to_port(jp, pcn.init_controlnet_params(pc, device="meta"))
+
+
+@functools.lru_cache(maxsize=None)
+def clip_text_params(seed=4):
+    import dreamllm_tpu.models.clip_text as jct
+    import dreamllm_tpu_torch.models.clip_text as pct
+
+    jc, pc = jct.CLIPTextConfig(**CLIP_TEXT), pct.CLIPTextConfig(**CLIP_TEXT)
+    jp = jct.init_clip_text_params(jax.random.PRNGKey(seed), jc)
+    return jc, pc, jp, to_port(jp, pct.init_clip_text_params(pc, device="meta"))
+
+
+def llava_cfgs(pretrain=True):
+    import dreamllm_tpu.models.llava as jllava
+    import dreamllm_tpu_torch.models.llava as pllava
+
+    jl, pl = llama_cfgs()
+    jf = jllava.llava_pretrain_config if pretrain else jllava.llava_config
+    pf = pllava.llava_pretrain_config if pretrain else pllava.llava_config
+    return (jf(llm=jl, vision=jclip.CLIPVisionConfig(**CLIP)),
+            pf(llm=pl, vision=pclip.CLIPVisionConfig(**CLIP)))
+
+
+@functools.lru_cache(maxsize=None)
+def llava_params(seed=5):
+    import dreamllm_tpu.models.llava as jllava
+    import dreamllm_tpu_torch.models.llava as pllava
+
+    jc, pc = llava_cfgs()
+    jp = jllava.init_llava_params(jax.random.PRNGKey(seed), jc)
+    return jc, pc, jp, to_port(jp, pllava.init_llava_params(pc, device="meta"))
 
 
 # ---------------------------------------------------------------------------

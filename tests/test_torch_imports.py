@@ -76,6 +76,13 @@ def test_walk_covers_the_vqa_driver_and_its_metrics():
         assert f"dreamllm_tpu_torch/{mod}.py" in names
 
 
+def test_walk_covers_the_model_variants():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/sd/sdxl", "models/sd/controlnet", "models/clip_text", "models/llava",
+                "models/sd/__init__"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
+
+
 CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 
 
@@ -129,7 +136,10 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import dreamllm_tpu_torch.eval.nlp, dreamllm_tpu_torch.utils.image\n"
         "import dreamllm_tpu_torch.eval.vqa, dreamllm_tpu_torch.eval.metrics\n"
         "import dreamllm_tpu_torch.eval.mmbench, dreamllm_tpu_torch\n"
+        "import dreamllm_tpu_torch.models.sd.sdxl, dreamllm_tpu_torch.models.sd.controlnet\n"
+        "import dreamllm_tpu_torch.models.clip_text, dreamllm_tpu_torch.models.llava\n"
         "from dreamllm_tpu_torch import beam_search, generate_text_speculative\n"
+        "from dreamllm_tpu_torch import sdxl_head_pipeline, controlnet_pipeline, llava_forward\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )

@@ -203,9 +203,9 @@ def _skips_reversed(monkeypatch, ts_full):
 
 
 def _temb_of_the_full_step(monkeypatch, ts_full):
-    real = punet._time_embedding
-    monkeypatch.setattr(punet, "_time_embedding",
-                        lambda p, cfg, ts, sample: real(p, cfg, t(ts_full), sample))
+    real = punet._unet_time_embedding
+    monkeypatch.setattr(punet, "_unet_time_embedding",
+                        lambda p, cfg, ts, added, sample: real(p, cfg, t(ts_full), added, sample))
 
 
 def _no_transformer(monkeypatch, ts_full):
