@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --no-main  # environment, build and kernel checks only
     python3 chip_smoke.py --profile chiprun_out/profile  # + traced UNet and decode steps
+    python3 chip_smoke.py --entry-points-only  # build, then phase 10 alone
 
 Phases, each on lines of its own; any failure exits non-zero:
 
@@ -84,7 +85,20 @@ Phases, each on lines of its own; any failure exits non-zero:
    engine without the cache) and embeddings prompts, and ``ModelServer`` on
    127.0.0.1 (``/health``, ``/generate`` with and without streaming,
    ``/logprob``, ``/chat`` with a 224x224 image through the engine's
-   embeddings lanes), called through ``OnlineClient``.
+   embeddings lanes), called through ``OnlineClient``;
+10. entry points: the port's command-line entry points as users start them,
+   on the recipes of ``projects/`` (random parameters from the recipes'
+   seeds, ``tokenizer=toy``, bf16 by override), every model at full width:
+   ``python -m dreamllm_tpu_torch.projects.dreamllm.serve`` on ``sft.py``
+   at full depth in int4 as a subprocess (``/health``, 8 concurrent
+   ``/generate`` each equal to the same prompt alone, ``/logprob``,
+   ``/chat`` with a 224x224 image, exit within 30 s of SIGTERM); through
+   ``main(argv)``: t2i (20 DPM steps) and an interleaved document on
+   ``sft.py``, DreamLLM-SDXL t2i (10 steps, 1024 px) on its stage-1 recipe,
+   3 train steps on ``stage1_creation.py`` cut to 4 layers (8-bit AdamW,
+   its checkpoint written) and t2i from that checkpoint, and
+   ``stable_diffusion/sample.py`` on SD-2.1 base (20 DPM steps). Each run's
+   kernel launches equal the counts derived from its configuration.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -96,6 +110,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2694,13 +2709,9 @@ def phase_serve_int4(profile_dir: str | None = None) -> tuple[dict, dict]:
 
 
 def _launch_counts() -> dict:
-    from dreamllm_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_cuda
-    from dreamllm_tpu_torch.ops.quant4 import w4_matmul_cuda
-    from dreamllm_tpu_torch.train.optim8bit import adam8bit_update_cuda
+    from dreamllm_tpu_torch.ops import kernel_launches
 
-    return {"flash_fwd": flash_attention.launches,
-            "flash_bwd": flash_attention_bwd_cuda.launches,
-            "adam8bit": adam8bit_update_cuda.launches, "w4a16": w4_matmul_cuda.launches}
+    return kernel_launches()
 
 
 def _zero_launch_counts() -> None:
@@ -3439,6 +3450,383 @@ def phase_qlora(base: dict, profile_dir: str | None = None) -> tuple[dict, dict]
     return train_launches, {k: v + serve_launches[k] for k, v in gen_launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# The entry points, as a user starts them
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the recipes name no dtype (float32 in both packages); the flash kernels
+# take bf16 only, so every run on the card asks for bf16 by the override
+# grammar. The SD-2.1 VAE is bf16 as in the main path; the SDXL head keeps
+# its float32 VAE (vae_dtype) and global projector.
+MODEL_BF16 = ("+model.llm.dtype=bfloat16", "+model.vision.dtype=bfloat16",
+              "+model.vision_projector.dtype=bfloat16")
+HEAD_BF16 = ("+sd_head.unet.dtype=bfloat16", "+sd_head.projector.dtype=bfloat16")
+SD_VAE_BF16 = ("+sd_head.vae.dtype=bfloat16",)
+ENTRY_T2I_STEPS = 20
+ENTRY_SDXL_STEPS = 10
+ENTRY_TRAIN_STEPS = 3
+ENTRY_TRAIN_LAYERS = 4
+_ABSENT = object()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _post(port: int, path: str, body: dict, timeout: float = 600.0) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _pngs(directory: str) -> list:
+    import glob
+
+    import numpy as np
+    from PIL import Image
+
+    return [np.asarray(Image.open(f)) for f in sorted(glob.glob(f"{directory}/**/*.png",
+                                                                recursive=True))]
+
+
+def _entry_serve(root: str, empty: str) -> dict:
+    """``python -m dreamllm_tpu_torch.projects.dreamllm.serve`` on the SFT
+    recipe at full width and depth, int4, 8 lanes, prefix cache for 2, random
+    parameters (no checkpoint), as a subprocess on a free port."""
+    import base64
+    import io
+    import re
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from dreamllm_tpu_torch.config import LazyConfig
+    from dreamllm_tpu_torch.projects.dreamllm.train import build_model_cfg
+
+    recipe = os.path.join(REPO, "projects/dreamllm/configs/sft.py")
+    layers = build_model_cfg(LazyConfig.load(recipe))[0].llm.num_hidden_layers
+    port = _free_port()
+    cmd = [sys.executable, "-m", "dreamllm_tpu_torch.projects.dreamllm.serve",
+           "--config_file", recipe,
+           "tokenizer=toy", "+quantize=int4", "+slots=8", "+prefix_cache_entries=2",
+           f"+port={port}", f"run_dir={root}/serve", f"+checkpoint={empty}", *MODEL_BF16]
+    log_path = os.path.join(root, "serve.log")
+    walls = {}
+    t0 = time.perf_counter()
+    env = dict(os.environ, WANDB_MODE="disabled")  # no network there
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"[entry-serve] the server exited with {proc.returncode}")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("[entry-serve] /health did not answer within 600 s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                    if json.loads(r.read()).get("ok"):
+                        break
+            except OSError:
+                time.sleep(0.5)
+        walls["start"] = time.perf_counter() - t0
+
+        # 8 prompts of 64 tokens (the server prepends bos to 63 words)
+        prompts = [" ".join(f"p{i}w{j}" for j in range(63)) for i in range(8)]
+        body = {"max_new_tokens": 32, "greedy": True}
+        together = [None] * 8
+
+        def call(i):
+            together[i] = _post(port, "/generate", dict(body, prompt=prompts[i]))["text"]
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        walls["generate_x8"] = time.perf_counter() - t
+        t = time.perf_counter()
+        alone = [_post(port, "/generate", dict(body, prompt=p))["text"] for p in prompts]
+        walls["generate_alone_x8"] = time.perf_counter() - t
+        for i, (a, b) in enumerate(zip(together, alone)):
+            if a is None or len(a.split()) != 32 or a != b:
+                first = next((j for j, (x, y) in enumerate(zip((a or "").split(), b.split()))
+                              if x != y), None)
+                raise AssertionError(f"[entry-serve] prompt {i}: concurrent answer differs from "
+                                     f"the same prompt alone at token {first}: {a!r} vs {b!r}")
+        t = time.perf_counter()
+        lps = _post(port, "/logprob", {"context": prompts[0],
+                                       "continuations": ["w1 w2", "w3 w4 w5"]})["logprobs"]
+        walls["logprob"] = time.perf_counter() - t
+        if len(lps) != 2 or not all(math.isfinite(x) for x in lps):
+            raise AssertionError(f"[entry-serve] /logprob {lps}")
+        img = (np.random.default_rng(0).random((224, 224, 3)) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        t = time.perf_counter()
+        chat = _post(port, "/chat", {
+            "messages": [{"role": "user", "content": "<image>\nWhat is in the picture?"}],
+            "images": [base64.b64encode(buf.getvalue()).decode()], "max_new_tokens": 32})
+        walls["chat"] = time.perf_counter() - t
+        if not isinstance(chat.get("text"), str) or not chat["text"].strip() or chat["images"]:
+            raise AssertionError(f"[entry-serve] /chat {chat}")
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=30)
+        walls["stop"] = time.perf_counter() - t
+    except BaseException:
+        log(open(log_path).read()[-4000:])
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = open(log_path).read()
+    if proc.returncode != 0:
+        log(text[-4000:])
+        raise AssertionError(f"[entry-serve] exit code {proc.returncode} after SIGTERM")
+    m = re.search(r"stopped after (\d+) engine decode forwards; kernel launches (\{.*\})", text)
+    if m is None:
+        raise AssertionError("[entry-serve] no launch line in the server's log")
+    steps, launches = int(m.group(1)), json.loads(m.group(2))
+    # every decode forward has 8 rows: K3 on its 7 projections a layer (the
+    # 32064-wide head takes the dequantize product); prefill chunks of 512
+    # rows take the dequantize product
+    want = {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0, "w4a16": 7 * layers * steps}
+    if launches != want:
+        raise AssertionError(f"[entry-serve] launches {launches}, want {want}")
+    log(f"[entry-serve] python -m ...dreamllm.serve (sft.py, int4, 8 slots, prefix cache 2): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; 8 concurrent answers equal alone; /logprob {[round(x, 3) for x in lps]}; /chat "
+        f"{len(chat['text'].split())} words; w4a16 launches {launches['w4a16']} = "
+        f"{7 * layers} x {steps} decode forwards (warm-up included)")
+    return launches
+
+
+def _entry_run(label: str, fn, argv: list, want: dict | None = None) -> tuple:
+    """``fn(argv)`` (an entry point's ``main``) with the launch counts zeroed
+    just before and read just after; every kernel without a count in
+    ``want`` must stay at 0. Returns ``(result, launches, wall seconds)``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _launch_counts()
+    log(f"[{label}] {wall:.3f} s through main(argv), card synchronised; launches {launches}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if want is not None:
+        full = {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0, "w4a16": 0, **want}
+        if launches != full:
+            raise AssertionError(f"[{label}] launches {launches}, want {full}")
+    return out, launches, wall
+
+
+def phase_entry_points() -> dict:
+    """The port's entry points as a user starts them, on the recipes of
+    ``projects/``, random parameters from the recipes' seeds,
+    ``tokenizer=toy`` and the bf16 overrides; every model at full width:
+
+    1. serve (:func:`_entry_serve`): a ``python -m`` subprocess on the SFT
+       recipe at full depth, int4, 8 lanes: ``/health``, 8 concurrent
+       ``/generate`` (64-token prompts, 32 greedy tokens) each equal to the
+       same prompt alone, ``/logprob``, ``/chat`` with a 224x224 image, exit
+       within 30 s of SIGTERM; K3 224 a decode forward;
+    2. inference through ``main(argv)`` on the SFT recipe at full depth:
+       t2i (20 DPM steps, 512 px; K1 by ``pipeline_flash_launches``) and an
+       interleaved document (64 new tokens; a PNG for each ``<dream_start>``
+       up to 2, K1 for each); DreamLLM-SDXL t2i on its stage-1 recipe
+       (10 steps, 1024 px, K1 140 a CFG UNet forward), the path the JAX
+       entry breaks without a checkpoint;
+    3. train on the DreamLLM stage-1 creation recipe at full width, depth
+       cut to 4 layers (its final checkpoint about 4 GB), synthetic pairs,
+       batch 2 x 2048, 8-bit AdamW, 3 steps: 3 finite losses in
+       ``metrics.jsonl``, the frozen subtrees equal to a fresh init of the
+       same recipe bit for bit, K1/K2/K4 as derived, one checkpoint; then
+       inference t2i from that checkpoint;
+    4. sample: ``stable_diffusion/sample.py`` on SD-2.1 base (20 DPM
+       steps, 512 px).
+
+    Everything is written under ``build/entry_points`` and deleted at the
+    end. Returns the launches by path."""
+    import dataclasses
+    import gc
+    import glob
+    import shutil
+
+    from dreamllm_tpu_torch.config import LazyArgumentParser, LazyConfig, instantiate
+    from dreamllm_tpu_torch.models.dreamllm import param_freeze_mask
+    from dreamllm_tpu_torch.models.sd.head import SDHeadConfig
+    from dreamllm_tpu_torch.projects.dreamllm import inference, train
+    from dreamllm_tpu_torch.projects.dreamllm_sdxl import inference as sdxl_inference
+    from dreamllm_tpu_torch.projects.stable_diffusion import sample
+    from dreamllm_tpu_torch.train.optim import adam_state
+    from dreamllm_tpu_torch.train.optim8bit import _Moment
+    from dreamllm_tpu_torch.train.tree import tree_leaves, tree_leaves_with_path
+
+    # The card's machine has wandb installed and no network: the train
+    # entry's MetricsLogger would start a wandb run. wandb is hidden for the
+    # phase (an import of it raises), so that the entry logs to
+    # metrics.jsonl, which the checks read.
+    saved_wandb = sys.modules.get("wandb", _ABSENT)
+    sys.modules["wandb"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(REPO, "build", "entry_points")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    empty = os.path.join(root, "no_checkpoint")  # no checkpoint: random parameters
+    os.makedirs(empty)
+    launches, walls = {}, {}
+    recipe = {name: os.path.join(REPO, "projects", path) for name, path in (
+        ("sft", "dreamllm/configs/sft.py"), ("creation", "dreamllm/configs/stage1_creation.py"),
+        ("sdxl", "dreamllm_sdxl/configs/stage1_creation.py"),
+        ("sd", "stable_diffusion/configs/base.py"))}
+    try:
+        launches["entry_serve"] = _entry_serve(root, empty)
+
+        # ---- inference on the SFT recipe, full depth ----
+        sft_cfg, sft_head = train.build_model_cfg(LazyConfig.load(recipe["sft"]))
+        sd_unet = sft_head.unet
+        base = ["--config_file", recipe["sft"], "tokenizer=toy", f"+checkpoint={empty}",
+                *MODEL_BF16, *HEAD_BF16, *SD_VAE_BF16]
+        t2i_k1 = pipeline_flash_launches(sd_unet, ENTRY_T2I_STEPS, 1, 64)
+        out, launches["entry_t2i"], walls["t2i"] = _entry_run(
+            "entry-t2i", inference.main,
+            base + [f"run_dir={root}/t2i", "+mode=t2i",
+                    f"+num_inference_steps={ENTRY_T2I_STEPS}"], {"flash_fwd": t2i_k1})
+        imgs = _pngs(out)
+        if len(imgs) != 1 or imgs[0].shape != (512, 512, 3):
+            raise AssertionError(f"[entry-t2i] PNGs {[i.shape for i in imgs]}")
+
+        out, got, walls["interleaved"] = _entry_run(
+            "entry-interleaved", inference.main,
+            base + [f"run_dir={root}/interleaved", "+mode=interleaved", "+max_new_tokens=64"])
+        doc = open(os.path.join(out, "document.md")).read()
+        imgs = _pngs(out)
+        # the toy tokenizer writes every id as tok<id>, <dream_start> too
+        n_dreams = doc.split().count(f"tok{sft_cfg.special_tokens.dream_start}")
+        if (len(imgs) != min(n_dreams, 2) or doc.count("![image](") != len(imgs)
+                or any(i.shape != (512, 512, 3) for i in imgs)):
+            raise AssertionError(f"[entry-interleaved] {len(imgs)} PNGs, {n_dreams} "
+                                 f"<dream_start>, {doc.count('![image](')} links")
+        want = {"flash_fwd": len(imgs) * pipeline_flash_launches(sd_unet, 50, 1, 64)}
+        if got != {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0, "w4a16": 0, **want}:
+            raise AssertionError(f"[entry-interleaved] launches {got}, want {want}")
+        launches["entry_interleaved"] = got
+
+        sdxl_unet = train.build_model_cfg(LazyConfig.load(recipe["sdxl"]))[1].unet
+        sdxl_k1 = pipeline_flash_launches(sdxl_unet, ENTRY_SDXL_STEPS, 1, 196)
+        out, launches["entry_sdxl_t2i"], walls["sdxl_t2i"] = _entry_run(
+            "entry-sdxl-t2i", sdxl_inference.main,
+            ["--config_file", recipe["sdxl"], "tokenizer=toy", f"+checkpoint={empty}",
+             f"run_dir={root}/sdxl", "+mode=t2i", f"+num_inference_steps={ENTRY_SDXL_STEPS}",
+             *MODEL_BF16, *HEAD_BF16], {"flash_fwd": sdxl_k1})
+        imgs = _pngs(out)
+        if len(imgs) != 1 or imgs[0].shape != (1024, 1024, 3):
+            raise AssertionError(f"[entry-sdxl-t2i] PNGs {[i.shape for i in imgs]}")
+
+        # ---- train on the stage-1 creation recipe, then inference from its checkpoint ----
+        ckpt = os.path.join(root, "train_out")
+        depth = f"model.llm.num_hidden_layers={ENTRY_TRAIN_LAYERS}"
+        train_argv = [
+            "--config_file", recipe["creation"], depth, "tokenizer=toy",
+            "data.datasets=['synthetic_pairs']", "data.ratios=null", "data.total_size=null",
+            "+data.size_list=[64]", "data.batch_size=2", "+optimizer.optimizer_8bit=true",
+            f"trainer.max_steps={ENTRY_TRAIN_STEPS}", "trainer.log_steps=1",
+            "trainer.val_steps=0", f"trainer.output_dir={ckpt}", f"run_dir={root}/train",
+            *MODEL_BF16, *HEAD_BF16, *SD_VAE_BF16]
+        final, got, walls["train"] = _entry_run("entry-train", train.main, train_argv)
+        _, config = LazyArgumentParser().parse(train_argv)
+        cfg, head_cfg = train.build_model_cfg(config)
+        rows = [json.loads(ln) for f in glob.glob(f"{root}/train/*/metrics.jsonl")
+                for ln in open(f)]
+        losses = [r["train/loss"] for r in rows]
+        if len(losses) != ENTRY_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[entry-train] metrics.jsonl losses {losses}")
+        moments = [m for m in tree_leaves(adam_state(final.opt_state)["m"])
+                   if isinstance(m, _Moment)]
+        # 256 px dream images: 32x32 latents at the UNet's first level
+        sites, first = unet_flash_sites(dataclasses.replace(head_cfg.unet, sample_size=32), 2,
+                                        cfg.n_dream_queries)
+        layers = cfg.llm.num_hidden_layers
+        want = {"flash_fwd": ENTRY_TRAIN_STEPS * (2 * layers + sites),
+                "flash_bwd": ENTRY_TRAIN_STEPS * (layers + sites - first),
+                "adam8bit": ENTRY_TRAIN_STEPS * len(moments), "w4a16": 0}
+        if got != want or not moments:
+            raise AssertionError(f"[entry-train] launches {got}, want {want} "
+                                 f"({len(moments)} 8-bit moment leaves)")
+        launches["entry_train"] = got
+        fresh = train.init_params(config, cfg, head_cfg, torch.device("cuda"))
+        mask = dict(tree_leaves_with_path(param_freeze_mask(fresh, cfg)))
+        trained = dict(tree_leaves_with_path(final.params))
+        frozen = [path for path, m in mask.items() if not m]
+        if not frozen or any(not torch.equal(trained[p], leaf)
+                             for p, leaf in tree_leaves_with_path(fresh) if not mask[p]):
+            raise AssertionError("[entry-train] a frozen parameter changed")
+        del fresh, trained, final
+        saved = sorted(n for n in os.listdir(ckpt) if n.startswith("checkpoint-"))
+        if saved != [f"checkpoint-{ENTRY_TRAIN_STEPS:06d}"]:
+            raise AssertionError(f"[entry-train] checkpoints {saved}")
+        gib = sum(os.path.getsize(f) for f in glob.glob(f"{ckpt}/*/*")) / 2**30
+        log(f"[entry-train] stage1_creation.py at {layers} layers: losses "
+            f"{[round(x, 4) for x in losses]}, lm "
+            f"{[round(r['train/lm_loss'], 4) for r in rows]}, vm "
+            f"{[round(r['train/vm_loss'], 4) for r in rows]}; {len(frozen)} frozen leaves "
+            f"unchanged; launches {got}; checkpoint {saved[0]} {gib:.2f} GiB")
+
+        out, launches["entry_t2i_from_train"], walls["t2i_from_train"] = _entry_run(
+            "entry-t2i-from-train", inference.main,
+            ["--config_file", recipe["creation"], depth, "tokenizer=toy",
+             f"+checkpoint={ckpt}", f"run_dir={root}/t2i_trained", "+mode=t2i",
+             f"+num_inference_steps={ENTRY_T2I_STEPS}", *MODEL_BF16, *HEAD_BF16,
+             *SD_VAE_BF16], {"flash_fwd": t2i_k1})
+        imgs = _pngs(out)
+        if len(imgs) != 1 or imgs[0].shape != (512, 512, 3):
+            raise AssertionError(f"[entry-t2i-from-train] PNGs {[i.shape for i in imgs]}")
+        shutil.rmtree(ckpt)
+
+        # ---- plain SD-2.1 sampling ----
+        sd_cfg = LazyConfig.load(recipe["sd"])
+        sample_unet = SDHeadConfig(**instantiate(sd_cfg["sd_head"])).unet
+        out, launches["entry_sample"], walls["sample"] = _entry_run(
+            "entry-sample", sample.main,
+            ["--config_file", recipe["sd"], f"+checkpoint={empty}", f"run_dir={root}/sample",
+             f"num_inference_steps={ENTRY_T2I_STEPS}", *HEAD_BF16, *SD_VAE_BF16],
+            {"flash_fwd": pipeline_flash_launches(sample_unet, ENTRY_T2I_STEPS, 1,
+                                                  sd_cfg["cond_len"])})
+        img = _pngs(os.path.dirname(out))
+        if len(img) != 1 or img[0].shape != (512, 512, 3):
+            raise AssertionError(f"[entry-sample] PNGs {[i.shape for i in img]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if saved_wandb is _ABSENT:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    log("[entry] walls through main(argv), card synchronised: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    log(f"[entry] launches by path: {launches}")
+    return launches
+
+
 def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8,
              ranges: tuple = ()) -> None:
     """Wall time of ``fn`` (synchronised, unprofiled), then one profiled run:
@@ -3597,6 +3985,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-main", action="store_true",
                     help="stop after the kernel checks (no model run, serving or training)")
+    ap.add_argument("--entry-points-only", action="store_true",
+                    help="after the build, run the entry-points phase alone (no kernel "
+                         "checks, no kernels line)")
     ap.add_argument("--profile", metavar="DIR",
                     help="profile one UNet step, full and shallow, and one decode step "
                          "(Chrome traces to DIR) and one train step, one SDXL UNet step "
@@ -3606,8 +3997,16 @@ def main() -> int:
     start = time.perf_counter()
     line = phase_env()
     phase_build()
-    checks = phase_kernels()
     launches = {}
+    if args.entry_points_only:
+        launches.update(phase_entry_points())
+        log(f"[time] build and entry points: {time.perf_counter() - start:.1f} s")
+        log(line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    checks = phase_kernels()
     if not args.no_main:
         phase_small_reference()
         phase_small_train()
@@ -3641,6 +4040,7 @@ def main() -> int:
         launches["qlora_training"], launches["qlora_serving"] = phase_qlora(int4_base,
                                                                             args.profile)
         del int4_base
+        launches.update(phase_entry_points())
     log(f"[time] every phase: {time.perf_counter() - start:.1f} s")
     log(line)
     print(json.dumps(kernel_line(checks, launches)))

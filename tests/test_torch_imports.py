@@ -83,6 +83,19 @@ def test_walk_covers_the_model_variants():
         assert f"dreamllm_tpu_torch/{mod}.py" in names
 
 
+def test_walk_covers_the_config_data_and_entry_points():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("config/__init__", "config/lazy", "config/arg_parser", "data/__init__",
+                "data/mixed", "data/registry", "data/builder", "data/collator", "data/stream",
+                "data/webdataset", "data/filters", "data/catalog", "utils/metrics_logger",
+                "projects/__init__", "projects/dreamllm/train", "projects/dreamllm/inference",
+                "projects/dreamllm/serve", "projects/dreamllm_sdxl/train",
+                "projects/dreamllm_sdxl/inference", "projects/llava/train",
+                "projects/stable_diffusion/train", "projects/stable_diffusion/train_sdxl",
+                "projects/stable_diffusion/sample"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
+
+
 CSRC = sorted((ROOT / "dreamllm_tpu_torch" / "csrc").glob("*"))
 
 
@@ -140,6 +153,14 @@ def test_package_import_loads_no_jax_and_builds_nothing():
         "import dreamllm_tpu_torch.models.clip_text, dreamllm_tpu_torch.models.llava\n"
         "from dreamllm_tpu_torch import beam_search, generate_text_speculative\n"
         "from dreamllm_tpu_torch import sdxl_head_pipeline, controlnet_pipeline, llava_forward\n"
+        "import dreamllm_tpu_torch.config, dreamllm_tpu_torch.data.catalog\n"
+        "import dreamllm_tpu_torch.utils.metrics_logger\n"
+        "import dreamllm_tpu_torch.projects.dreamllm.serve, dreamllm_tpu_torch.projects.llava.train\n"
+        "import dreamllm_tpu_torch.projects.dreamllm.inference\n"
+        "import dreamllm_tpu_torch.projects.dreamllm_sdxl.train\n"
+        "import dreamllm_tpu_torch.projects.dreamllm_sdxl.inference\n"
+        "import dreamllm_tpu_torch.projects.stable_diffusion.train_sdxl\n"
+        "import dreamllm_tpu_torch.projects.stable_diffusion.sample\n"
         "from dreamllm_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
     )
