@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --no-main  # environment, build and kernel checks only
     python3 chip_smoke.py --profile chiprun_out/profile  # + traced UNet and decode steps
-    python3 chip_smoke.py --entry-points-only  # build, then phase 10 alone
+    python3 chip_smoke.py --only entry_points  # build, then phase 10 alone
+    python3 chip_smoke.py --only convert_eval  # build, then phase 11 alone
 
 Phases, each on lines of its own; any failure exits non-zero:
 
@@ -98,7 +99,19 @@ Phases, each on lines of its own; any failure exits non-zero:
    3 train steps on ``stage1_creation.py`` cut to 4 layers (8-bit AdamW,
    its checkpoint written) and t2i from that checkpoint, and
    ``stable_diffusion/sample.py`` on SD-2.1 base (20 DPM steps). Each run's
-   kernel launches equal the counts derived from its configuration.
+   kernel launches equal the counts derived from its configuration;
+11. conversion and evaluation (``convert_eval``): DreamLLM-7B's random
+   weights written in the published layouts (Vicuna-7B safetensors, a
+   4-layer ``.bin``, CLIP ViT-L/14 as ``CLIPVisionModel`` and ``CLIPModel``,
+   SD-2.1 as a diffusers dir), converted by ``python -m
+   dreamllm_tpu_torch.convert.cli`` (bf16 with the vocabulary grown to
+   32064, and int4, side by side; walls and peak host RSS), both
+   checkpoints held to their sources bit for bit, 32 greedy tokens from
+   the int4 one equal to the
+   on-card quantized tree's, ``stage1_creation.py`` trained 3 steps from
+   ``pretrained.llm/clip/sd``, ``eval_t2i`` on ``sft.py`` and on the
+   DreamLLM-SDXL recipe, the converted ``CLIPModel``'s similarity on the
+   card against the CPU, and JPEG shards through ``device_prefetch``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -3827,6 +3840,707 @@ def phase_entry_points() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Conversion from the published layouts, fine-tuning from them, FID
+# ---------------------------------------------------------------------------
+
+CONVERT_T2I_STEPS = 20
+CONVERT_SDXL_STEPS = 10
+CONVERT_DECODE_TOKENS = 32
+INCEPTION_IMAGES = 512  # the reference statistics' images, timed 3 times at batch 32
+INCEPTION_BATCH = 32
+INCEPTION_REPEATS = 3
+PREFETCH_SHARD_PAIRS = 256
+PREFETCH_BATCH = 16
+CLIP_DIAG_ATOL = 1e-4  # float32 logits (scale exp(log(1/0.07)) = 14.3), card vs CPU
+# the HF names of a decoder layer's leaves: (name, stored transposed)
+_HF_LLAMA_LAYER = {
+    "input_norm": ("input_layernorm.weight", False),
+    "post_attn_norm": ("post_attention_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True), "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True), "wo": ("self_attn.o_proj.weight", True),
+    "w_gate": ("mlp.gate_proj.weight", True), "w_up": ("mlp.up_proj.weight", True),
+    "w_down": ("mlp.down_proj.weight", True),
+}
+_HF_CLIP_LAYER = {
+    "ln1_w": ("layer_norm1.weight", False), "ln1_b": ("layer_norm1.bias", False),
+    "ln2_w": ("layer_norm2.weight", False), "ln2_b": ("layer_norm2.bias", False),
+    "wq": ("self_attn.q_proj.weight", True), "bq": ("self_attn.q_proj.bias", False),
+    "wk": ("self_attn.k_proj.weight", True), "bk": ("self_attn.k_proj.bias", False),
+    "wv": ("self_attn.v_proj.weight", True), "bv": ("self_attn.v_proj.bias", False),
+    "wo": ("self_attn.out_proj.weight", True), "bo": ("self_attn.out_proj.bias", False),
+    "fc1_w": ("mlp.fc1.weight", True), "fc1_b": ("mlp.fc1.bias", False),
+    "fc2_w": ("mlp.fc2.weight", True), "fc2_b": ("mlp.fc2.bias", False),
+}
+
+
+def _host_tensor(t: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    return (t.t() if transpose else t).contiguous().cpu()
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _write_hf_llama(out: str, llm: dict, cfg, layers: int, fmt: str) -> None:
+    """The decoder ``llm`` (the port's tree) in ``LlamaForCausalLM``'s
+    layout, its first ``layers`` layers: safetensors shards of 8 layers
+    (``fmt="safetensors"``) or one ``pytorch_model.bin``."""
+    from safetensors.torch import save_file
+
+    os.makedirs(out, exist_ok=True)
+    _write_json(os.path.join(out, "config.json"), {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": llm["embed_tokens"].shape[0], "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.kv_heads,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16"})
+    head = {"model.embed_tokens.weight": _host_tensor(llm["embed_tokens"]),
+            "model.norm.weight": _host_tensor(llm["final_norm"]),
+            "lm_head.weight": _host_tensor(llm["lm_head"], True)}
+    groups = [list(range(i, min(i + 8, layers))) for i in range(0, layers, 8)]
+    if fmt == "bin":
+        groups = [list(range(layers))]
+    for g, ls in enumerate(groups):
+        sd = dict(head) if g == 0 else {}
+        for l in ls:
+            for key, (name, tr) in _HF_LLAMA_LAYER.items():
+                sd[f"model.layers.{l}.{name}"] = _host_tensor(llm["layers"][l][key], tr)
+        if fmt == "bin":
+            torch.save(sd, os.path.join(out, "pytorch_model.bin"))
+        else:
+            save_file(sd, os.path.join(out, f"model-{g + 1:05d}-of-{len(groups):05d}"
+                                            ".safetensors"))
+        del sd
+
+
+def _hf_clip_tower(tree: dict, prefix: str, text: bool) -> dict:
+    sd = {}
+    if text:
+        sd[prefix + "embeddings.token_embedding.weight"] = _host_tensor(tree["token_embedding"])
+        sd[prefix + "final_layer_norm.weight"] = _host_tensor(tree["final_ln_w"])
+        sd[prefix + "final_layer_norm.bias"] = _host_tensor(tree["final_ln_b"])
+    else:
+        sd[prefix + "embeddings.class_embedding"] = _host_tensor(tree["class_embedding"])
+        sd[prefix + "embeddings.patch_embedding.weight"] = _host_tensor(tree["patch_embedding"])
+        for ours, theirs in (("pre_ln", "pre_layrnorm"), ("post_ln", "post_layernorm")):
+            sd[f"{prefix}{theirs}.weight"] = _host_tensor(tree[f"{ours}_w"])
+            sd[f"{prefix}{theirs}.bias"] = _host_tensor(tree[f"{ours}_b"])
+    sd[prefix + "embeddings.position_embedding.weight"] = _host_tensor(tree["position_embedding"])
+    for l, layer in enumerate(tree["layers"]):
+        for key, (name, tr) in _HF_CLIP_LAYER.items():
+            sd[f"{prefix}encoder.layers.{l}.{name}"] = _host_tensor(layer[key], tr)
+    return sd
+
+
+def _clip_vision_json(vc) -> dict:
+    return {"hidden_size": vc.hidden_size, "intermediate_size": vc.intermediate_size,
+            "num_hidden_layers": vc.num_hidden_layers,
+            "num_attention_heads": vc.num_attention_heads, "image_size": vc.image_size,
+            "patch_size": vc.patch_size, "layer_norm_eps": vc.layer_norm_eps}
+
+
+def _write_diffusers(out: str, unet: dict, ucfg, vae: dict, vcfg) -> None:
+    from safetensors.torch import save_file
+
+    from dreamllm_tpu_torch.convert.hf_sd import export_unet_state_dict, export_vae_state_dict
+
+    for sub, sd, conf in (
+        ("unet", export_unet_state_dict(unet), {
+            "sample_size": ucfg.sample_size, "in_channels": ucfg.in_channels,
+            "out_channels": ucfg.out_channels,
+            "block_out_channels": list(ucfg.block_out_channels),
+            "down_block_types": list(ucfg.down_block_types),
+            "up_block_types": list(ucfg.up_block_types),
+            "layers_per_block": ucfg.layers_per_block,
+            "transformer_layers_per_block": list(ucfg.transformer_layers_per_block),
+            "attention_head_dim": list(ucfg.num_attention_heads),
+            "cross_attention_dim": ucfg.cross_attention_dim, "use_linear_projection": True}),
+        ("vae", export_vae_state_dict(vae), {
+            "block_out_channels": list(vcfg.block_out_channels),
+            "layers_per_block": vcfg.layers_per_block,
+            "latent_channels": vcfg.latent_channels, "scaling_factor": vcfg.scaling_factor}),
+    ):
+        os.makedirs(os.path.join(out, sub), exist_ok=True)
+        save_file(sd, os.path.join(out, sub, "diffusion_pytorch_model.safetensors"))
+        _write_json(os.path.join(out, sub, "config.json"), conf)
+
+
+def _run_cli(label: str, args: list, log_dir: str) -> tuple[float, float]:
+    """``python -m dreamllm_tpu_torch.convert.cli`` as a subprocess: (wall
+    seconds, peak host RSS in GiB of that process, from ``wait4``)."""
+    cmd = [sys.executable, "-m", "dreamllm_tpu_torch.convert.cli", *args]
+    log_path = os.path.join(log_dir, f"convert_{label}.log")
+    t = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+    _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        log(open(log_path).read()[-4000:])
+        raise AssertionError(f"[convert-{label}] exit code {proc.returncode}")
+    return wall, usage.ru_maxrss / 2**20  # KiB -> GiB
+
+
+class _ProtocolSplit:
+    """Within ``with _ProtocolSplit(eval_t2i) as split:``, the entry's
+    ``run_protocol`` is timed and its sampling and re-rank callables too
+    (card synchronised at each edge): ``split.times`` holds ``protocol``,
+    ``sampling`` and ``rerank`` seconds, so that an ``eval_t2i.main`` wall
+    splits into start-up (init, checkpoint load, re-ranker and Inception
+    init), sampling, re-rank and Inception + FID."""
+
+    def __init__(self, module):
+        self.module, self.orig = module, module.run_protocol
+        self.times = {"protocol": 0.0, "sampling": 0.0, "rerank": 0.0}
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.times[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def __enter__(self):
+        def protocol(pipeline_fn, clip_score_fn, *a, **k):
+            return self._timed("protocol", self.orig)(
+                self._timed("sampling", pipeline_fn), self._timed("rerank", clip_score_fn),
+                *a, **k)
+        self.module.run_protocol = protocol
+        return self
+
+    def __exit__(self, *exc):
+        self.module.run_protocol = self.orig
+
+
+def _split_line(wall: float, times: dict, images: int) -> str:
+    rest = times["protocol"] - times["sampling"] - times["rerank"]
+    return (f"start-up (init, checkpoint load, re-ranker and Inception init) "
+            f"{wall - times['protocol']:.3f} s, sampling {times['sampling']:.3f} s "
+            f"({times['sampling'] / images:.3f} s an image over {images}), re-rank "
+            f"{times['rerank']:.3f} s, Inception + FID {rest:.3f} s")
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.to(a.device).reshape(-1).view(torch.uint8)))
+
+
+def _bit_leaves(tree) -> dict:
+    """Path -> tensor of a port tree, a quantized weight's fields apart."""
+    import dataclasses
+
+    from dreamllm_tpu_torch.train.tree import tree_leaves_with_path
+
+    out = {}
+    for path, x in tree_leaves_with_path(tree):
+        if dataclasses.is_dataclass(x):
+            out.update({path + (f.name,): getattr(x, f.name) for f in dataclasses.fields(x)})
+        else:
+            out[path] = x
+    return out
+
+
+def _check_tree(label: str, got, want) -> int:
+    """Port trees equal bit for bit; returns the number of leaves."""
+    want_leaves = _bit_leaves(want)
+    got_leaves = _bit_leaves(got)
+    if set(got_leaves) != set(want_leaves):
+        raise AssertionError(f"[{label}] leaves differ: "
+                             f"{sorted(set(got_leaves) ^ set(want_leaves))[:6]}")
+    bad = [p for p, w in want_leaves.items() if not _same_bits(got_leaves[p], w)]
+    if bad:
+        raise AssertionError(f"[{label}] {len(bad)} leaves differ, first {bad[:4]}")
+    return len(want_leaves)
+
+
+def _mean_init(src: torch.Tensor, n_new: int, axis: int) -> torch.Tensor:
+    """The new rows (axis 0) or columns (axis 1) of the vocabulary resize:
+    the float32 numpy mean of the bf16 values, rounded to bf16."""
+    import numpy as np
+
+    a = src.float().cpu().numpy()
+    m = a.mean(axis=axis, keepdims=True)
+    reps = (n_new, 1) if axis == 0 else (1, n_new)
+    return torch.from_numpy(np.tile(m, reps)).to(src.dtype)
+
+
+def _expected_llm(src: dict, layers: int, vocab: int) -> dict:
+    """The converted decoder: ``src``'s first ``layers`` layers, the
+    vocabulary grown to ``vocab`` with mean-init rows, on the card."""
+    n_new = vocab - src["embed_tokens"].shape[0]
+    emb = torch.cat([src["embed_tokens"], _mean_init(src["embed_tokens"], n_new, 0).cuda()])
+    head = torch.cat([src["lm_head"], _mean_init(src["lm_head"], n_new, 1).cuda()], dim=1)
+    return {"embed_tokens": emb, "layers": src["layers"][:layers],
+            "final_norm": src["final_norm"], "lm_head": head}
+
+
+def _shards_for_prefetch(root: str, side: int) -> list:
+    """2 tar shards of ``PREFETCH_SHARD_PAIRS`` JPEG/caption pairs at
+    ``side`` px, written with PIL from seeded noise."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for k in range(2):
+        path = os.path.join(root, f"shard{k}.tar")
+        with tarfile.open(path, "w") as tf:
+            for i in range(PREFETCH_SHARD_PAIRS):
+                arr = rng.integers(0, 256, (side // 8, side // 8, 3), dtype=np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(arr).resize((side, side)).save(buf, "JPEG", quality=90)
+                for ext, data in (("jpg", buf.getvalue()), ("txt", f"pair {k} {i}".encode())):
+                    ti = tarfile.TarInfo(f"{k}-{i:05d}.{ext}")
+                    ti.size = len(data)
+                    tf.addfile(ti, io.BytesIO(data))
+        paths.append(path)
+    return paths
+
+
+def _phase_prefetch(root: str) -> dict:
+    """Tar shards of 512 px JPEGs through the port's Python reader
+    (``data/webdataset.py``, the native loader needs ``jpeglib.h``, which
+    the card's machine lacks) in ``background_iterator``, batches of 16,
+    ``device_prefetch(size=2)``: every batch equal to a synchronous
+    ``.to("cuda")`` of it, bit for bit."""
+    import numpy as np
+
+    from dreamllm_tpu_torch.data.prefetch import background_iterator, device_prefetch
+    from dreamllm_tpu_torch.data.webdataset import ShardStream
+
+    paths = _shards_for_prefetch(root, 512)
+    kept = []
+
+    def batches():
+        buf = []
+        for s in background_iterator(ShardStream(paths, shuffle_buffer=1, resample=False)):
+            buf.append(s)
+            if len(buf) == PREFETCH_BATCH:
+                b = {"images": torch.from_numpy(np.stack([x["image"] for x in buf])),
+                     "ids": torch.tensor([int(x["txt"].split()[-1]) for x in buf])}
+                kept.append(b)
+                yield b
+                buf = []
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = 0
+    for got in device_prefetch(batches(), size=2):
+        want = kept[n]
+        if not (_same_bits(got["images"], want["images"].to("cuda"))
+                and _same_bits(got["ids"], want["ids"].to("cuda"))):
+            raise AssertionError(f"[convert-prefetch] batch {n} differs from its "
+                                 "synchronous copy")
+        n += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    images = n * PREFETCH_BATCH
+    if images != 2 * PREFETCH_SHARD_PAIRS:
+        raise AssertionError(f"[convert-prefetch] {images} images, want {2 * PREFETCH_SHARD_PAIRS}")
+    log(f"[convert-prefetch] {images} JPEGs at 512 px through ShardStream -> "
+        f"background_iterator -> batches of {PREFETCH_BATCH} -> device_prefetch(size=2): "
+        f"every batch equal to its synchronous copy; {images / wall:.1f} images/s decoded "
+        f"and copied ({wall:.3f} s)")
+    return {"images_per_s": images / wall}
+
+
+def phase_convert_eval() -> dict:
+    """Conversion, fine-tuning and FID evaluation from published layouts, at
+    DreamLLM-7B's widths with random weights from a seed:
+
+    1. the port's random 7B decoder (vocab 32000, bf16) written as Vicuna's
+       ``LlamaForCausalLM`` safetensors shards (and its first 4 layers as a
+       ``.bin`` dir), CLIP ViT-L/14 as ``CLIPVisionModel`` and as a
+       ``CLIPModel`` dir, SD-2.1's UNet and VAE as a diffusers dir through
+       the port's ``export_*``;
+    2. ``python -m dreamllm_tpu_torch.convert.cli --llm --clip --sd
+       --vocab_size 32064`` (bf16) and ``--llm --quantize int4``, as two
+       subprocesses side by side: walls and peak host RSS;
+    3. the bf16 checkpoint equal to the source trees bit for bit (the 64 new
+       rows the mean init), the int4 one equal to the on-card
+       ``quantize_int4`` of the same bf16 weights, and 32 greedy tokens from
+       it equal to those from the on-card quantized tree (K3 224 a decode
+       forward);
+    4. the train entry on ``stage1_creation.py`` at 4 layers with
+       ``pretrained.llm/clip/sd`` (3 steps; the converted leaves, all
+       frozen there, equal the sources bit for bit; K1/K2/K4 as the
+       entry-points phase's creation run);
+    5. ``eval_t2i`` on ``sft.py`` from a checkpoint of the converted groups
+       plus seeded plugins (4 captions, 2 seeds, the random CLIP text
+       re-ranker, 20 steps, 256 px; K1 by ``pipeline_flash_launches``) and
+       on the DreamLLM-SDXL ``stage1_creation.py`` (2 captions, 1 seed, 10
+       steps, 1024 px; K1 1400), each wall split by :class:`_ProtocolSplit`;
+       Inception's forward over 512 images at batch 32, three times, and
+       one batch profiled;
+    6. ``convert_clip_model_dir`` on the ``CLIPModel`` dir, then
+       ``clip_similarity``'s diagonal on the card against the CPU;
+    7. ``device_prefetch`` over JPEG shards (:func:`_phase_prefetch`).
+
+    Everything is written under ``build/convert_eval`` and deleted at the
+    end. Returns the launches by path."""
+    import concurrent.futures as cf
+    import dataclasses
+    import gc
+    import glob
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    import dreamllm_tpu_torch.configs as configs
+    from dreamllm_tpu_torch.bridge import from_jax
+    from dreamllm_tpu_torch.config import LazyConfig
+    from dreamllm_tpu_torch.convert.hf_clip import convert_clip_model_dir
+    from dreamllm_tpu_torch.eval.fid import (
+        inception_pool3,
+        init_inception_params,
+        save_stats_npz,
+    )
+    from dreamllm_tpu_torch.eval.text2img import extract_inception_features
+    from dreamllm_tpu_torch.generation.sampler import SamplingConfig, generate_text
+    from dreamllm_tpu_torch.models.clip import (
+        clip_pooled_output,
+        clip_preprocess,
+        clip_vision_forward,
+        init_clip_vision_params,
+    )
+    from dreamllm_tpu_torch.models.clip_text import (
+        CLIPTextConfig,
+        clip_similarity,
+        clip_text_forward,
+        init_clip_text_params,
+    )
+    from dreamllm_tpu_torch.models.llama import init_llama_params
+    from dreamllm_tpu_torch.models.projector import init_projector_params
+    from dreamllm_tpu_torch.models.sd.unet import init_unet_params
+    from dreamllm_tpu_torch.models.sd.vae import init_vae_params
+    from dreamllm_tpu_torch.ops.quant4 import quantize_llama_params_int4
+    from dreamllm_tpu_torch.projects.dreamllm import eval_t2i, train
+    from dreamllm_tpu_torch.train.checkpoints import latest_checkpoint, load_params, save_checkpoint
+    from dreamllm_tpu_torch.train.tree import tree_map
+
+    saved_wandb = sys.modules.get("wandb", _ABSENT)
+    sys.modules["wandb"] = None  # no network on the card's machine (phase 10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(REPO, "build", "convert_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    empty = os.path.join(root, "no_checkpoint")
+    os.makedirs(empty)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(110)
+    cfg, head_cfg = configs.dreamllm_7b()
+    vocab = cfg.llm.vocab_size  # 32064
+    hf_vocab = 32000            # Vicuna-7B's
+    layers = cfg.llm.num_hidden_layers
+    launches, walls, rss = {}, {}, {}
+    try:
+        # ---- 1. published layouts from the port's random trees ----
+        t = time.perf_counter()
+        src_llm = init_llama_params(dataclasses.replace(cfg.llm, vocab_size=hf_vocab),
+                                    generator=gen, device=dev)
+        src_clip = init_clip_vision_params(cfg.vision, generator=gen, device=dev)
+        src_unet = init_unet_params(head_cfg.unet, generator=gen, device=dev)
+        src_vae = init_vae_params(head_cfg.vae, generator=gen, device=dev)
+        d = {k: os.path.join(root, k) for k in ("llm", "llm4", "clip", "clipmodel", "sd")}
+        _write_hf_llama(d["llm"], src_llm, cfg.llm, layers, "safetensors")
+        _write_hf_llama(d["llm4"], src_llm, cfg.llm, ENTRY_TRAIN_LAYERS, "bin")
+        from safetensors.torch import save_file
+
+        os.makedirs(d["clip"])
+        save_file(_hf_clip_tower(src_clip, "vision_model.", False),
+                  os.path.join(d["clip"], "model.safetensors"))
+        _write_json(os.path.join(d["clip"], "config.json"), _clip_vision_json(cfg.vision))
+        tcfg = CLIPTextConfig(dtype=torch.float32)  # ViT-L/14's text tower
+        src_text = init_clip_text_params(tcfg, generator=gen, device=dev)
+        vproj = torch.randn((cfg.vision.hidden_size, tcfg.projection_dim), generator=gen,
+                            device=dev) * cfg.vision.hidden_size ** -0.5
+        tproj = torch.randn((tcfg.hidden_size, tcfg.projection_dim), generator=gen,
+                            device=dev) * tcfg.hidden_size ** -0.5
+        clip32 = tree_map(lambda x: x.float(), src_clip)
+        sd = {**_hf_clip_tower(clip32, "vision_model.", False),
+              **_hf_clip_tower(src_text, "text_model.", True),
+              "visual_projection.weight": _host_tensor(vproj, True),
+              "text_projection.weight": _host_tensor(tproj, True),
+              "logit_scale": torch.tensor(math.log(1 / 0.07))}
+        os.makedirs(d["clipmodel"])
+        save_file(sd, os.path.join(d["clipmodel"], "model.safetensors"))
+        _write_json(os.path.join(d["clipmodel"], "config.json"), {
+            "projection_dim": tcfg.projection_dim,
+            "vision_config": _clip_vision_json(cfg.vision),
+            "text_config": {"vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden_size,
+                            "intermediate_size": tcfg.intermediate_size,
+                            "num_hidden_layers": tcfg.num_hidden_layers,
+                            "num_attention_heads": tcfg.num_attention_heads,
+                            "max_position_embeddings": tcfg.max_position_embeddings,
+                            "layer_norm_eps": tcfg.layer_norm_eps,
+                            "projection_dim": tcfg.projection_dim}})
+        del sd, clip32
+        _write_diffusers(d["sd"], src_unet, head_cfg.unet, src_vae, head_cfg.vae)
+        walls["write_layouts"] = time.perf_counter() - t
+        gib = {k: sum(os.path.getsize(f) for f in glob.glob(f"{v}/**/*.*", recursive=True))
+               / 2**30 for k, v in d.items()}
+        log(f"[convert-write] published layouts in {walls['write_layouts']:.3f} s: "
+            + ", ".join(f"{k} {v:.2f} GiB" for k, v in gib.items()))
+
+        # ---- 2. the converter CLI, bf16 and int4 ----
+        out_bf16, out_int4 = os.path.join(root, "ck_bf16"), os.path.join(root, "ck_int4")
+        # the two conversions run side by side on the host's cores: each wall
+        # is that of a process sharing the host, the pair's is the phase's cost
+        t = time.perf_counter()
+        with cf.ThreadPoolExecutor(2) as pool:
+            runs = {"convert_bf16": pool.submit(_run_cli, "bf16", [
+                        "--llm", d["llm"], "--clip", d["clip"], "--sd", d["sd"],
+                        "--vocab_size", str(vocab), "--out", out_bf16], root),
+                    "convert_int4": pool.submit(_run_cli, "int4", [
+                        "--llm", d["llm"], "--quantize", "int4", "--vocab_size", str(vocab),
+                        "--out", out_int4], root)}
+            for k, run in runs.items():
+                walls[k], rss[k] = run.result()
+        walls["convert_pair"] = time.perf_counter() - t
+        log(f"[convert-cli] side by side: --llm --clip --sd --vocab_size {vocab} (bf16, source "
+            f"{gib['llm'] + gib['clip'] + gib['sd']:.2f} GiB): {walls['convert_bf16']:.3f} s, "
+            f"peak RSS {rss['convert_bf16']:.2f} GiB; --llm --quantize int4: "
+            f"{walls['convert_int4']:.3f} s, peak RSS {rss['convert_int4']:.2f} GiB; both "
+            f"{walls['convert_pair']:.3f} s")
+
+        # ---- 3. the checkpoints against their sources ----
+        ck = load_params(latest_checkpoint(out_bf16))
+        want_llm = _expected_llm(src_llm, layers, vocab)
+        n_leaves = _check_tree("convert-bf16 llm", ck["llm"], want_llm)
+        n_leaves += _check_tree("convert-bf16 clip", ck["clip_vision_embedding"]["clip"], src_clip)
+        n_leaves += _check_tree("convert-bf16 unet", ck["sd_head"]["unet"], src_unet)
+        n_leaves += _check_tree("convert-bf16 vae", ck["sd_head"]["vae"], src_vae)
+        q_ck = load_params(latest_checkpoint(out_int4))["llm"]
+        bf16_llm = tree_map(lambda x: x.to(dev), ck["llm"])
+        del ck
+        q_card = quantize_llama_params_int4(bf16_llm)
+        n_q = _check_tree("convert-int4", tree_map(lambda x: x.to(dev), q_ck), q_card)
+        log(f"[convert-check] bf16 checkpoint: {n_leaves} leaves equal their sources bit for "
+            f"bit, the {vocab - hf_vocab} new embedding rows and head columns the mean init; "
+            f"int4 checkpoint: {n_q} leaves equal the on-card quantize_int4 of the bf16 weights")
+        q_ck = tree_map(lambda x: x.to(dev), q_ck)
+        del bf16_llm
+        ids = torch.randint(10, hf_vocab, (1, 16), generator=gen, device=dev)
+        lens = torch.tensor([16], device=dev)
+        scfg = SamplingConfig(greedy=True, max_new_tokens=CONVERT_DECODE_TOKENS)
+        outs, steps = [], 0
+        for label, tree in (("checkpoint", q_ck), ("on-card", q_card)):
+            out, got, _ = _entry_run(f"convert-decode-{label}", lambda _: generate_text(
+                tree, cfg.llm, ids, lens, scfg, device=dev), [])
+            steps = out["steps"]
+            want = {"w4a16": 7 * layers * steps}
+            if got != {"flash_fwd": 0, "flash_bwd": 0, "adam8bit": 0, **want}:
+                raise AssertionError(f"[convert-decode] launches {got}, want {want}")
+            launches[f"convert_decode_{label}"] = got
+            outs.append(out["tokens"])
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError("[convert-decode] the converted int4 checkpoint's tokens "
+                                 "differ from the on-card quantized tree's")
+        log(f"[convert-decode] {CONVERT_DECODE_TOKENS} greedy tokens from the int4 checkpoint "
+            f"equal the on-card quantized tree's; w4a16 {7 * layers} x {steps} decode forwards "
+            "a run")
+        del q_ck, q_card, outs
+        shutil.rmtree(out_int4)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 4. fine-tuning from the converted weights ----
+        creation = os.path.join(REPO, "projects/dreamllm/configs/stage1_creation.py")
+        train_out = os.path.join(root, "train_out")
+        train_argv = [
+            "--config_file", creation, f"model.llm.num_hidden_layers={ENTRY_TRAIN_LAYERS}",
+            "tokenizer=toy", "data.datasets=['synthetic_pairs']", "data.ratios=null",
+            "data.total_size=null", "+data.size_list=[64]", "data.batch_size=2",
+            "+optimizer.optimizer_8bit=true", f"trainer.max_steps={ENTRY_TRAIN_STEPS}",
+            "trainer.log_steps=1", "trainer.val_steps=0", f"trainer.output_dir={train_out}",
+            f"run_dir={root}/train", f"+pretrained.llm={d['llm4']}",
+            f"+pretrained.clip={d['clip']}", f"+pretrained.sd={d['sd']}",
+            *MODEL_BF16, *HEAD_BF16, *SD_VAE_BF16]
+        final, got, walls["train"] = _entry_run("convert-train", train.main, train_argv)
+        # as the entry-points phase's run of the same recipe and depth
+        want = {"flash_fwd": 39, "flash_bwd": 24, "adam8bit": 6, "w4a16": 0}
+        if got != want:
+            raise AssertionError(f"[convert-train] launches {got}, want {want}")
+        launches["convert_train"] = got
+        n_conv = _check_tree("convert-train llm", final.params["llm"],
+                             _expected_llm(src_llm, ENTRY_TRAIN_LAYERS, vocab))
+        n_conv += _check_tree("convert-train clip",
+                              final.params["clip_vision_embedding"]["clip"], src_clip)
+        n_conv += _check_tree("convert-train unet", final.params["sd_head"]["unet"], src_unet)
+        n_conv += _check_tree("convert-train vae", final.params["sd_head"]["vae"], src_vae)
+        losses = [json.loads(ln)["train/loss"] for f in glob.glob(f"{root}/train/*/metrics.jsonl")
+                  for ln in open(f)]
+        if len(losses) != ENTRY_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[convert-train] losses {losses}")
+        log(f"[convert-train] stage1_creation.py at {ENTRY_TRAIN_LAYERS} layers from "
+            f"pretrained.llm/clip/sd: {walls['train']:.3f} s, losses "
+            f"{[round(x, 4) for x in losses]}; the {n_conv} converted leaves (all frozen in "
+            f"this recipe) equal their sources bit for bit after {ENTRY_TRAIN_STEPS} steps, so "
+            f"at step 0; launches {got}; checkpoint "
+            f"{os.path.basename(latest_checkpoint(train_out))}")
+        del final
+        shutil.rmtree(train_out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 5. FID: the reference statistics and eval_t2i ----
+        inception = init_inception_params(generator=torch.Generator(device=dev).manual_seed(2),
+                                          device=dev)
+        ref_imgs = np.random.default_rng(5).random(
+            (INCEPTION_IMAGES, 256, 256, 3)).astype(np.float32)
+        batches = torch.from_numpy(ref_imgs).to(dev).split(INCEPTION_BATCH)
+        inception_pool3(inception, batches[0])  # warm-up
+        fwd_rates = []
+        for _ in range(INCEPTION_REPEATS):  # the forward alone: images already on the card
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for b in batches:
+                inception_pool3(inception, b)
+            torch.cuda.synchronize()
+            fwd_rates.append(len(ref_imgs) / (time.perf_counter() - t))
+        t = time.perf_counter()  # as eval_t2i calls it: host copies in, features out
+        feats = extract_inception_features(inception, ref_imgs, batch_size=INCEPTION_BATCH)
+        e2e_rate = len(ref_imgs) / (time.perf_counter() - t)
+        log(f"[convert-inception] pool3 at batch {INCEPTION_BATCH}, 256 px, float32, TF32 off, "
+            f"{len(ref_imgs)} images: forward alone {[round(r, 1) for r in fwd_rates]} images/s "
+            f"(median {statistics.median(fwd_rates):.1f}); through "
+            f"extract_inception_features (host copy and read included) {e2e_rate:.1f} images/s")
+        _profile(lambda: inception_pool3(inception, batches[0]), "inception_b32", root,
+                 trace=False, top=6)
+        inc_rate = statistics.median(fwd_rates)
+        save_stats_npz(feats, os.path.join(root, "ref.npz"))
+        del inception, feats, ref_imgs, batches
+        captions = ["a red bird on a branch", "a bowl of fruit on a table",
+                    "a city street at night", "a dog running on a beach"]
+        _write_json(os.path.join(root, "caps.json"), captions)
+        _write_json(os.path.join(root, "caps2.json"), captions[:2])
+
+        # the converted groups plus seeded plugins: one checkpoint of sft.py's tree
+        sft = os.path.join(REPO, "projects/dreamllm/configs/sft.py")
+        shead = train.build_model_cfg(LazyConfig.load(sft))[1]
+        h = cfg.llm.hidden_size
+        conv = load_params(latest_checkpoint(out_bf16))
+        full_root = os.path.join(root, "ck_full")
+        groups = tree_map(lambda x: x.cpu(), {
+            "clip_vision_embedding": {
+                "clip": conv["clip_vision_embedding"]["clip"],
+                "projector": init_projector_params(cfg.projector_cfg(), generator=gen,
+                                                   device=dev)},
+            "dream_embedding": {"queries": (torch.randn((cfg.n_dream_queries, h), generator=gen,
+                                                        device=dev) * h ** -0.5).bfloat16()},
+            "sd_head": {"unet": conv["sd_head"]["unet"], "vae": conv["sd_head"]["vae"],
+                        "projector": init_projector_params(head_cfg.projector_cfg(),
+                                                           generator=gen, device=dev)},
+        })
+        del conv
+        full = save_checkpoint(full_root, 0, groups)
+        os.link(os.path.join(latest_checkpoint(out_bf16), "llm.pt"), os.path.join(full, "llm.pt"))
+        meta = json.load(open(os.path.join(full, "meta.json")))
+        meta["param_groups"] = sorted(meta["param_groups"] + ["llm"])
+        _write_json(os.path.join(full, "meta.json"), meta)
+        del groups
+        gc.collect()
+
+        eval_common = [f"+fid_reference={root}/ref.npz", "+sample_batch_size=2", "tokenizer=toy",
+                       *MODEL_BF16, *HEAD_BF16]
+        sites = pipeline_flash_launches(dataclasses.replace(shead.unet, sample_size=32),
+                                        CONVERT_T2I_STEPS, 1, 64)
+        n_calls = 2 * len(captions) // 2  # 2 seeds x 2 chunks of 2 captions
+        with _ProtocolSplit(eval_t2i) as split_sd:
+            out, got, walls["eval_t2i"] = _entry_run(
+                "convert-eval-t2i", eval_t2i.main,
+                ["--config_file", sft, f"+checkpoint={full_root}",
+                 f"+captions_json={root}/caps.json", "+num_seeds=2",
+                 "+use_random_clip_text=true", f"+num_inference_steps={CONVERT_T2I_STEPS}",
+                 "+fid_image_size=256", f"run_dir={root}/eval_sd", *eval_common, *SD_VAE_BF16],
+                {"flash_fwd": sites * n_calls})
+        launches["convert_eval_t2i"] = got
+        if out["n"] != len(captions) or not math.isfinite(out["fid"]) or \
+                out["inception"] != "random":
+            raise AssertionError(f"[convert-eval-t2i] {out}")
+        written = glob.glob(f"{root}/eval_sd/*/fid_rank0.json")
+        if len(written) != 1 or json.load(open(written[0])) != out:
+            raise AssertionError(f"[convert-eval-t2i] fid_rank0.json {written}")
+        fid_sd = out["fid"]
+        sdxl_recipe = os.path.join(REPO, "projects/dreamllm_sdxl/configs/stage1_creation.py")
+        sdxl_unet = train.build_model_cfg(LazyConfig.load(sdxl_recipe))[1].unet
+        with _ProtocolSplit(eval_t2i) as split_sdxl:
+            out, got, walls["eval_sdxl"] = _entry_run(
+                "convert-eval-sdxl", eval_t2i.main,
+                ["--config_file", sdxl_recipe, f"+checkpoint={empty}",
+                 f"+captions_json={root}/caps2.json", "+num_seeds=1",
+                 f"+num_inference_steps={CONVERT_SDXL_STEPS}", "+fid_image_size=1024",
+                 f"run_dir={root}/eval_sdxl", *eval_common],
+                {"flash_fwd": pipeline_flash_launches(sdxl_unet, CONVERT_SDXL_STEPS, 1, 196)})
+        launches["convert_eval_sdxl"] = got
+        if out["n"] != 2 or not math.isfinite(out["fid"]):
+            raise AssertionError(f"[convert-eval-sdxl] {out}")
+        log(f"[convert-eval] eval_t2i on sft.py from the converted checkpoint (4 captions x 2 "
+            f"seeds, random CLIP text re-rank, {CONVERT_T2I_STEPS} steps, 256 px): "
+            f"{walls['eval_t2i']:.3f} s, FID {fid_sd:.6f} (random Inception); DreamLLM-SDXL "
+            f"(2 captions, {CONVERT_SDXL_STEPS} steps, 1024 px): {walls['eval_sdxl']:.3f} s, "
+            f"FID {out['fid']:.6f}; Inception forward {inc_rate:.1f} images/s at batch "
+            f"{INCEPTION_BATCH} (256 px, float32, TF32 off)")
+        log("[convert-eval] sft.py: " + _split_line(walls["eval_t2i"], split_sd.times,
+                                                   2 * len(captions)))
+        log("[convert-eval] DreamLLM-SDXL: " + _split_line(walls["eval_sdxl"], split_sdxl.times, 2))
+        shutil.rmtree(out_bf16)
+        shutil.rmtree(full_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 6. the CLIPModel dir: the re-ranker's similarity, card against CPU ----
+        (vcfg, vtree), (tcfg2, ttree), vp, tp, ls = convert_clip_model_dir(d["clipmodel"])
+        rng = np.random.default_rng(7)
+        images = torch.from_numpy(rng.random((4, 224, 224, 3)).astype(np.float32))
+        ids = torch.from_numpy(rng.integers(1, 49000, (4, 77)))
+        for i, n in enumerate((5, 9, 20, 76)):
+            ids[i, n] = 49407  # EOT, the largest id: the pooled position
+        diags = []
+        for where in ("cuda", "cpu"):
+            vparams = from_jax(vtree, init_clip_vision_params(vcfg, device="meta"), device=where)
+            tparams = from_jax(ttree, init_clip_text_params(tcfg2, device="meta"), device=where)
+            with torch.no_grad():
+                pix = clip_preprocess(images.to(where), vcfg.image_size)
+                img = clip_pooled_output(vparams, vcfg, clip_vision_forward(vparams, vcfg, pix))
+                _, txt = clip_text_forward(tparams, tcfg2, ids.to(where))
+                sims = clip_similarity(img, txt, vp.to(where), tp.to(where), ls.to(where))
+            diags.append(torch.diagonal(sims).cpu())
+        err = (diags[0] - diags[1]).abs().max().item()
+        if not torch.isfinite(diags[0]).all() or err > CLIP_DIAG_ATOL:
+            raise AssertionError(f"[convert-clip] diagonal card {diags[0]} vs CPU {diags[1]}")
+        log(f"[convert-clip] convert_clip_model_dir (ViT-L/14 towers, float32) -> "
+            f"clip_similarity diagonal {[round(x, 4) for x in diags[0].tolist()]}, card vs CPU "
+            f"max |diff| {err:.2e} (limit {CLIP_DIAG_ATOL})")
+
+        # ---- 7. JPEG shards through device_prefetch ----
+        rates = _phase_prefetch(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if saved_wandb is _ABSENT:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    log("[convert] walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; peak RSS {rss}; prefetch {rates['images_per_s']:.1f} images/s")
+    log(f"[convert] launches by path: {launches}")
+    return launches
+
+
 def _profile(fn, label: str, out_dir: str, trace: bool = True, top: int = 8,
              ranges: tuple = ()) -> None:
     """Wall time of ``fn`` (synchronised, unprofiled), then one profiled run:
@@ -3985,9 +4699,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-main", action="store_true",
                     help="stop after the kernel checks (no model run, serving or training)")
-    ap.add_argument("--entry-points-only", action="store_true",
-                    help="after the build, run the entry-points phase alone (no kernel "
-                         "checks, no kernels line)")
+    alone = {"entry_points": phase_entry_points, "convert_eval": phase_convert_eval}
+    ap.add_argument("--only", choices=alone,
+                    help="after the build, run this phase alone (no kernel checks, no "
+                         "kernels line)")
     ap.add_argument("--profile", metavar="DIR",
                     help="profile one UNet step, full and shallow, and one decode step "
                          "(Chrome traces to DIR) and one train step, one SDXL UNet step "
@@ -3998,49 +4713,63 @@ def main() -> int:
     line = phase_env()
     phase_build()
     launches = {}
-    if args.entry_points_only:
-        launches.update(phase_entry_points())
-        log(f"[time] build and entry points: {time.perf_counter() - start:.1f} s")
+    if args.only:
+        alone[args.only]()
+        log(f"[time] build and {args.only}: {time.perf_counter() - start:.1f} s")
         log(line)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
     checks = phase_kernels()
+    log(f"[time] after kernels: {time.perf_counter() - start:.1f} s")
     if not args.no_main:
         phase_small_reference()
         phase_small_train()
         phase_small_quant()
         phase_small_qlora()
         phase_small_decode_variants()
+        log(f"[time] after small phases: {time.perf_counter() - start:.1f} s")
         launches["serving"], model = phase_main(args.profile)
+        log(f"[time] after main document: {time.perf_counter() - start:.1f} s")
         launches["t2i"], launches["t2i_deepcache2"] = phase_t2i(model)
         launches["serving_deepcache2"] = phase_document_dc2(model)
         launches["chat"] = phase_chat(model)
+        log(f"[time] after t2i and chat: {time.perf_counter() - start:.1f} s")
         launches["sdxl_serving"], launches["sdxl_t2i"], sdxl, images = phase_sdxl(
             model, args.profile)
         launches["clip_text"] = phase_clip_text(model, images)
+        log(f"[time] after sdxl and clip text: {time.perf_counter() - start:.1f} s")
         del images
         sdxl = list(sdxl)  # phase_sdxl_train empties it
         launches["sdxl_training"] = phase_sdxl_train(sdxl)
+        log(f"[time] after sdxl training: {time.perf_counter() - start:.1f} s")
         del sdxl
         torch.cuda.empty_cache()
         launches["controlnet"] = phase_controlnet(model, args.profile)
+        log(f"[time] after controlnet: {time.perf_counter() - start:.1f} s")
         torch.cuda.empty_cache()
         launches["llava_training"] = phase_llava_train(model)
+        log(f"[time] after llava training: {time.perf_counter() - start:.1f} s")
         torch.cuda.empty_cache()
         model = list(model)  # phase_train empties it: nothing here keeps the parameters alive
         launches["training"] = phase_train(model, args.profile)
+        log(f"[time] after training: {time.perf_counter() - start:.1f} s")
         del model
         torch.cuda.empty_cache()
         launches["quantized_serving"], int4_base = phase_serve_int4(args.profile)
+        log(f"[time] after int4 serving: {time.perf_counter() - start:.1f} s")
         torch.cuda.empty_cache()
         launches.update(phase_decode_variants(int4_base))
+        log(f"[time] after decode variants: {time.perf_counter() - start:.1f} s")
         torch.cuda.empty_cache()
         launches["qlora_training"], launches["qlora_serving"] = phase_qlora(int4_base,
                                                                             args.profile)
+        log(f"[time] after qlora: {time.perf_counter() - start:.1f} s")
         del int4_base
         launches.update(phase_entry_points())
+        log(f"[time] after entry points: {time.perf_counter() - start:.1f} s")
+        launches.update(phase_convert_eval())
     log(f"[time] every phase: {time.perf_counter() - start:.1f} s")
     log(line)
     print(json.dumps(kernel_line(checks, launches)))

@@ -3,7 +3,9 @@
 ``from_jax(tree, like)`` walks ``like``, a parameter tree of the port (from
 its ``init_*`` functions, cheapest on ``device="meta"``), and fills every
 leaf from the matching leaf of ``tree``, a nested dict/list of numpy arrays
-taken from the JAX package (``jax.tree.map(np.asarray, params)``):
+taken from the JAX package (``jax.tree.map(np.asarray, params)``), or of
+CPU tensors in the same layout (the port's ``convert/`` modules build such
+trees; a stacked leaf is then sliced, not copied, on the CPU):
 
 * a list in the port against a dict in JAX is a layer stack: JAX stacks the
   layers on a leading ``[L, ...]`` axis, the port keeps one dict per layer;
@@ -83,13 +85,13 @@ def _fmt(path: Path) -> str:
 
 
 def _leaf(arr, like: torch.Tensor, jpath: Path, index, stack_len, used, dev) -> torch.Tensor:
-    a = np.asarray(arr)
+    a = arr if torch.is_tensor(arr) else np.asarray(arr)
     if index is not None:
         if a.shape[0] != stack_len:
             raise ValueError(
                 f"{_fmt(jpath)}: stacked over {a.shape[0]} layers, the port has {stack_len}")
         a = a[index]
-    t = _to_torch(a)
+    t = a if torch.is_tensor(a) else _to_torch(a)
     if t.ndim == 4:
         t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
     if tuple(t.shape) != tuple(like.shape):

@@ -3,18 +3,16 @@
     python -m dreamllm_tpu_torch.projects.dreamllm.train \\
         --config_file projects/dreamllm/configs/smoke.py device=cpu
 
-Wires: lazy config -> tokenizer -> model and head init (or checkpoint
-restore with stage mixing) -> mixed datasets -> builder/collator stream ->
-train step -> Trainer loop. It runs on one card (``device=cuda``, the
-default: the flash and fused-AdamW kernels) or on the CPU (``device=cpu``:
-their plain versions).
+Wires: lazy config -> tokenizer -> model and head init -> HF/diffusers
+weights converted in place (``pretrained.llm``, ``.clip``, ``.sd``) ->
+checkpoint restore with stage mixing -> mixed datasets -> builder/collator
+stream -> train step -> Trainer loop. It runs on one card (``device=cuda``,
+the default: the flash and fused-AdamW kernels) or on the CPU
+(``device=cpu``: their plain versions).
 
 What the JAX entry does and one card cannot, this one refuses with an
 error naming the way round: a mesh over more than one device or the
-sequence-/pipeline-parallel axes (ROADMAP #22), and ``pretrained.llm``,
-``pretrained.clip`` or ``pretrained.sd`` set to a checkpoint directory
-(those go through the JAX package's converter, which the port does not
-import).
+sequence-/pipeline-parallel axes (ROADMAP #22).
 
 Recipes may set any ``dtype`` (or the SDXL head's ``vae_dtype``) to a
 name, ``+model.llm.dtype=bfloat16``: the port maps it to the torch dtype.
@@ -30,6 +28,7 @@ import numpy as np
 import torch
 
 import dreamllm_tpu_torch.data.catalog  # noqa: F401 — registers datasets
+from dreamllm_tpu_torch.bridge import from_jax
 from dreamllm_tpu_torch.config import LazyArgumentParser, default_setup, instantiate
 from dreamllm_tpu_torch.data import BuilderConfig, DataManager, DreamLLMBuilder
 from dreamllm_tpu_torch.data.stream import BatchStream, MappedStream, PrefetchStream
@@ -49,6 +48,7 @@ from dreamllm_tpu_torch.train.checkpoints import latest_checkpoint, load_params
 from dreamllm_tpu_torch.train.optim import OptimizerConfig, make_optimizer
 from dreamllm_tpu_torch.train.step import init_train_state, make_train_step
 from dreamllm_tpu_torch.train.trainer import Trainer, TrainerConfig
+from dreamllm_tpu_torch.train.tree import tree_leaves
 from dreamllm_tpu_torch.utils.logging import get_logger
 from dreamllm_tpu_torch.utils.metrics_logger import MetricsLogger
 
@@ -138,15 +138,48 @@ def check_one_card(config) -> None:
             raise NotImplementedError(
                 f"model.{axis}={model[axis]!r}: sequence and pipeline parallelism are not "
                 "ported (ROADMAP #22); this recipe needs a mesh of several devices")
-    pre = config.get("pretrained", {}) or {}
-    for key in ("llm", "clip", "sd"):
-        if pre.get(key):
-            raise NotImplementedError(
-                f"pretrained.{key}={pre[key]!r}: HF/diffusers checkpoint directories are "
-                "converted by the JAX package (dreamllm_tpu.convert), which the port does not "
-                "import. Convert there, carry the tree across with "
-                "dreamllm_tpu_torch.bridge.from_jax, write it with the port's "
-                "train.checkpoints.save_checkpoint, and point pretrained.resume_from at it")
+
+
+def _merge_checked(tree, like, where: str):
+    """A converted tree (the JAX layout, on the CPU) carried into the port's
+    layout on the device of ``like``, which it replaces; any difference of
+    tree or shape raises ``ValueError``, as the JAX entry's check does."""
+    try:
+        return from_jax(tree, like, device=next(iter(tree_leaves(like))).device)
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(
+            f"pretrained weights at {where} do not match the configured "
+            f"model (tree/shape mismatch); check the model config: {e}") from e
+
+
+def load_pretrained(params: dict, pre: dict, cfg: DreamLLMConfig, head_cfg) -> dict:
+    """HF/diffusers checkpoint dirs (``pretrained.llm/clip/sd``), the
+    cold-start path: converted on the host, the decoder's vocabulary resized
+    to the config (reference ``from_pretrained`` +
+    ``resize_token_embeddings``, modeling_dreamllm.py:1310-1322), checked
+    against the initialised tree and put in its place."""
+    if pre.get("llm"):
+        from dreamllm_tpu_torch.convert.cli import convert_llama_dir
+
+        _, p = convert_llama_dir(pre["llm"], dtype=cfg.llm.dtype, vocab_size=cfg.llm.vocab_size)
+        params["llm"] = _merge_checked(p, params["llm"], pre["llm"])
+        logger.info("loaded pretrained LLM from %s", pre["llm"])
+    if pre.get("clip"):
+        from dreamllm_tpu_torch.convert.cli import convert_clip_dir
+
+        _, p = convert_clip_dir(pre["clip"], dtype=cfg.vision.dtype)
+        params["clip_vision_embedding"]["clip"] = _merge_checked(
+            p, params["clip_vision_embedding"]["clip"], pre["clip"])
+        logger.info("loaded pretrained CLIP from %s", pre["clip"])
+    if pre.get("sd"):
+        from dreamllm_tpu_torch.convert.cli import convert_sd_dir
+
+        _, p = convert_sd_dir(pre["sd"], dtype=head_cfg.unet.dtype)
+        for k in ("unet", "vae"):
+            params["sd_head"][k] = _merge_checked(p[k], params["sd_head"][k],
+                                                  f"{pre['sd']}/{k}")
+        logger.info("loaded pretrained SD UNet+VAE from %s", pre["sd"])
+    return params
 
 
 def restore(params: dict, pre: dict) -> dict:
@@ -251,7 +284,9 @@ def main(argv=None):
     cfg, head_cfg = build_model_cfg(config)
     tokenizer = make_tokenizer(config, cfg)
     _, make_loss = head_init_and_loss(config, head_cfg)
-    params = restore(init_params(config, cfg, head_cfg, dev), config.get("pretrained", {}) or {})
+    pre = config.get("pretrained", {}) or {}
+    params = restore(load_pretrained(init_params(config, cfg, head_cfg, dev), pre, cfg, head_cfg),
+                     pre)
 
     # ---- optimizer + step ----
     ocfg = OptimizerConfig(**config["optimizer"])

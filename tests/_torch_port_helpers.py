@@ -359,3 +359,138 @@ def jax_leaf(tree, path):
     if layer is not None:
         a = a[layer]
     return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+
+# ---------------------------------------------------------------------------
+# FID Inception and published checkpoint layouts (converters, eval_t2i)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def inception_params(seed=2):
+    """A random FID Inception in the JAX package's layout (numpy), and the
+    port's tree of the same numbers. The tree's shapes come from
+    ``jax.eval_shape`` of JAX's ``init_inception_params`` (no eager init);
+    conv kernels are drawn ``N(0, 1/fan_in)`` as JAX draws them, BN scales
+    ``1 + 0.1 N`` and biases ``0.1 N``, so the folded BN is exercised."""
+    from dreamllm_tpu.eval.fid import init_inception_params
+    import dreamllm_tpu_torch.eval.fid as pfid
+
+    shapes = jax.eval_shape(init_inception_params, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['w']"):
+            kh, kw, cin, _ = s.shape
+            return (rng.standard_normal(s.shape) * (kh * kw * cin) ** -0.5).astype(np.float32)
+        if "bn_scale" in name:
+            return (1 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if "bn_bias" in name:
+            return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        return np.zeros(s.shape, np.float32)
+
+    jp = jax.tree_util.tree_map_with_path(fill, shapes)
+    return jp, to_port(jp, pfid.init_inception_params(device="meta"))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pool3_fn():
+    from dreamllm_tpu.eval.fid import inception_pool3
+
+    return jax.jit(inception_pool3)
+
+
+def jax_pool3(params, images) -> np.ndarray:
+    """JAX's ``inception_pool3`` under one ``jax.jit`` per worker (one
+    compile per input shape)."""
+    return np.asarray(_jax_pool3_fn()(params, np.asarray(images, np.float32)))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_init(init_fn, cfg, seed=0):
+    """A JAX init function of ``(rng, cfg)`` called eagerly, as numpy
+    (cached; eager op compiles are shared across configurations, where
+    ``jax.jit`` would compile each configuration's whole graph)."""
+    return np_tree(init_fn(jax.random.PRNGKey(seed), cfg))
+
+
+def save_safetensors_dir(path, state_dict: dict, config: dict | None = None) -> str:
+    """``state_dict`` (numpy or torch) as one ``model.safetensors`` under
+    ``path``, with ``config.json`` when given: a published layout."""
+    import json
+
+    from safetensors.torch import save_file
+
+    os.makedirs(path, exist_ok=True)
+    save_file({k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).contiguous()
+               for k, v in state_dict.items()}, os.path.join(path, "model.safetensors"))
+    if config is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f)
+    return str(path)
+
+
+def unet_diffusers_config(kw: dict) -> dict:
+    """A diffusers ``unet/config.json`` for the UNetConfig keywords ``kw``
+    (diffusers names the SD-2.x head counts ``attention_head_dim``)."""
+    out = {"sample_size": kw["sample_size"], "in_channels": 4, "out_channels": 4,
+           "block_out_channels": list(kw["block_out_channels"]),
+           "down_block_types": list(kw["down_block_types"]),
+           "up_block_types": list(kw["up_block_types"]),
+           "layers_per_block": kw["layers_per_block"],
+           "transformer_layers_per_block": list(kw["transformer_layers_per_block"]),
+           "attention_head_dim": list(kw["num_attention_heads"]),
+           "cross_attention_dim": kw["cross_attention_dim"],
+           "norm_num_groups": kw.get("norm_num_groups", 32)}
+    for k in ("addition_embed_type", "addition_time_embed_dim",
+              "projection_class_embeddings_input_dim"):
+        if k in kw:
+            out[k] = kw[k]
+    return out
+
+
+def write_diffusers_dir(path, unet_kw: dict, vae_kw: dict, seed=0) -> tuple[str, dict]:
+    """A diffusers pipeline dir (``unet/`` and ``vae/``) of JAX-initialised
+    random weights, written through JAX's ``export_*_state_dict``. Returns
+    the dir and the JAX trees (numpy)."""
+    from dreamllm_tpu.convert.hf_sd import export_unet_state_dict, export_vae_state_dict
+
+    unet = jax_init(junet.init_unet_params, junet.UNetConfig(**unet_kw), seed)
+    vae = jax_init(jvae.init_vae_params, jvae.VAEConfig(**vae_kw), seed + 1)
+    save_safetensors_dir(os.path.join(path, "unet"), export_unet_state_dict(unet),
+                         unet_diffusers_config(unet_kw))
+    save_safetensors_dir(os.path.join(path, "vae"), export_vae_state_dict(vae),
+                         {"block_out_channels": list(vae_kw["block_out_channels"]),
+                          "layers_per_block": vae_kw["layers_per_block"],
+                          "latent_channels": 4, "scaling_factor": 0.18215})
+    return str(path), {"unet": unet, "vae": vae}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and tuple(a.shape) == tuple(b.shape)
+            and torch.equal(a.detach().cpu().reshape(-1).view(torch.uint8),
+                            b.detach().cpu().reshape(-1).view(torch.uint8)))
+
+
+def assert_trees_bit_equal(got, want, where: str = "") -> None:
+    """Port trees (tensors, ``Q4Tensor``/``QTensor`` leaves) equal bit for
+    bit, structure included."""
+    import dataclasses
+
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), (where, sorted(want))
+        for k in want:
+            assert_trees_bit_equal(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)) and len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_bit_equal(g, w, f"{where}/{i}")
+    elif dataclasses.is_dataclass(want):
+        assert type(got) is type(want), (where, type(got), type(want))
+        for f in dataclasses.fields(want):
+            assert_trees_bit_equal(getattr(got, f.name), getattr(want, f.name),
+                                   f"{where}/{f.name}")
+    else:
+        assert same_bits(got, want), (where, got.dtype, want.dtype, tuple(got.shape),
+                                      tuple(want.shape))

@@ -11,8 +11,11 @@ own recipes under ``projects/``:
   ``choice_logprobs``): the port's twin of ``tests/test_e2e_recipe.py``;
 * the LLaVA, SD, SDXL and sample entries, and DreamLLM-SDXL inference
   without a checkpoint (it writes its image where the JAX entry raises);
-* the refusals: no card without ``device=cpu``, the multi-device recipes,
-  HF checkpoint directories; and one ``python -m`` run of the train entry.
+* the refusals: no card without ``device=cpu``, the multi-device recipes;
+* ``pretrained.llm/clip/sd`` pointing at tiny HF and diffusers dirs: the
+  step-0 parameters equal the JAX entry's merged ones bit for bit, and a
+  dir of the wrong shape raises ``ValueError`` in both; and one ``python
+  -m`` run of the train entry.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import subprocess
 import sys
 import urllib.request
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -387,16 +391,118 @@ def test_entry_without_a_card_raises(entry, tmp_path, monkeypatch):
     ("dreamllm/configs/stage2_longcontext.py", [], "#22"),
     ("dreamllm/configs/stage2_pipeline.py", [], "#22"),
     ("dreamllm/configs/smoke.py", ["mesh.fsdp=2"], "#22"),
-    ("dreamllm/configs/smoke.py", ["+pretrained.llm=/some/hf/dir"], "bridge.from_jax"),
-    ("dreamllm/configs/stage1_creation.py", ["pretrained.sd=/some/diffusers/dir"],
-     "save_checkpoint"),
     ("llava/configs/pretrain_smoke.py", ["mesh.tp=2"], "#22"),
-], ids=["longcontext", "pipeline", "mesh", "hf-llm", "hf-sd", "llava-mesh"])
+], ids=["longcontext", "pipeline", "mesh", "llava-mesh"])
 def test_what_one_card_cannot_run_is_refused(recipe, extra, match, tmp_path):
     fn = port_llava_train.main if recipe.startswith("llava") else port_train.main
     with pytest.raises(NotImplementedError, match=match):
         fn(["--config_file", f"{CFG}/{recipe}", CPU, f"run_dir={tmp_path}/run", *extra])
     assert not os.path.exists(tmp_path / "run")
+
+
+# ---------------------------------------------------------------------------
+# pretrained.llm / .clip / .sd: HF and diffusers dirs converted in place
+# ---------------------------------------------------------------------------
+
+# the smoke recipe's shapes in the published layouts; the HF vocabulary is
+# short of the recipe's 40000, so the mean-init resize runs
+SMOKE_HF_LLAMA = dict(vocab_size=39990, hidden_size=64, intermediate_size=128,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+SMOKE_HF_CLIP = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                     num_attention_heads=2, image_size=16, patch_size=8)
+SMOKE_UNET = dict(sample_size=8, block_out_channels=(16, 32),
+                  down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                  up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                  layers_per_block=1, transformer_layers_per_block=(1, 1),
+                  num_attention_heads=(2, 4), cross_attention_dim=24, norm_num_groups=4)
+SMOKE_VAE = dict(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4)
+
+
+@pytest.fixture(scope="module")
+def pretrained_dirs(tmp_path_factory):
+    from transformers import CLIPVisionConfig, CLIPVisionModel, LlamaConfig, LlamaForCausalLM
+
+    from tests._torch_port_helpers import write_diffusers_dir
+
+    root = tmp_path_factory.mktemp("pretrained")
+    torch.manual_seed(0)
+    LlamaForCausalLM(LlamaConfig(**SMOKE_HF_LLAMA)).save_pretrained(root / "llm")
+    LlamaForCausalLM(LlamaConfig(**{**SMOKE_HF_LLAMA, "hidden_size": 32})).save_pretrained(
+        root / "llm_narrow")
+    CLIPVisionModel(CLIPVisionConfig(**SMOKE_HF_CLIP)).save_pretrained(root / "clip")
+    write_diffusers_dir(root / "sd", SMOKE_UNET, SMOKE_VAE, seed=12)
+    return root
+
+
+class _StepZero:
+    """A Trainer that trains nothing: ``train()`` returns the state as the
+    entry built it, step 0."""
+
+    def __init__(self, tcfg, step, stream, state, **kw):
+        self.state = state
+
+    def train(self):
+        return self.state
+
+
+@pytest.mark.parametrize("keys", [("llm", "clip"), ("sd",)], ids=["hf-llm", "hf-sd"])
+def test_pretrained_dirs_match_jax(keys, pretrained_dirs, tmp_path, monkeypatch):
+    """``pretrained.llm/clip/sd`` on the smoke recipe: the port's step-0
+    parameters converted from the dirs equal ``from_jax`` of the JAX entry's
+    merged ones, bit for bit (float32; the LLM's vocabulary grown by
+    mean-init rows); every other subtree keeps the port's own init."""
+    from projects.dreamllm import train as jax_train
+
+    monkeypatch.setattr(jax_train, "Trainer", _StepZero)
+    monkeypatch.setattr(port_train, "Trainer", _StepZero)
+    common = ["--config_file", SMOKE, *[f"+pretrained.{k}={pretrained_dirs}/{k}" for k in keys]]
+    want = jax_train.main(common + [f"run_dir={tmp_path}/jax"])
+    got = port_train.main(common + [CPU, f"run_dir={tmp_path}/port"])
+    # the converted subtrees; the random rest is drawn differently by design
+    subtrees = {"llm": (("llm",),), "clip": (("clip_vision_embedding", "clip"),),
+                "sd": (("sd_head", "unet"), ("sd_head", "vae"))}
+    for k in keys:
+        for path in subtrees[k]:
+            g, w = got.params, want.params
+            for p in path:
+                g, w = g[p], w[p]
+            want_port = from_jax(jax.tree.map(np.asarray, w), g, device="cpu")
+            got_leaves = dict(_leaves_with_path(g))
+            for leaf_path, leaf in _leaves_with_path(want_port):
+                other = got_leaves[leaf_path]
+                assert leaf.dtype == other.dtype and torch.equal(
+                    leaf.reshape(-1).view(torch.uint8), other.reshape(-1).view(torch.uint8)), (
+                    path, leaf_path)
+    fresh = port_train.init_params(LazyArgumentParser().parse(["--config_file", SMOKE, CPU])[1],
+                                   *port_train.build_model_cfg(
+                                       LazyArgumentParser().parse(["--config_file", SMOKE,
+                                                                   CPU])[1]), torch.device("cpu"))
+    # the converted subtrees replaced the random ones, the rest stayed
+    replaced = {"llm": got.params["llm"]["layers"][0]["wq"],
+                "clip": got.params["clip_vision_embedding"]["clip"]["layers"][0]["wq"],
+                "sd": got.params["sd_head"]["unet"]["conv_in"]["w"]}
+    init = {"llm": fresh["llm"]["layers"][0]["wq"],
+            "clip": fresh["clip_vision_embedding"]["clip"]["layers"][0]["wq"],
+            "sd": fresh["sd_head"]["unet"]["conv_in"]["w"]}
+    for k in ("llm", "clip", "sd"):
+        assert torch.equal(replaced[k], init[k]) == (k not in keys), k
+
+
+def test_pretrained_dir_of_the_wrong_shape_raises_in_both(pretrained_dirs, tmp_path):
+    from projects.dreamllm import train as jax_train
+
+    argv = ["--config_file", SMOKE, f"+pretrained.llm={pretrained_dirs}/llm_narrow"]
+    with pytest.raises(ValueError, match="do not match the configured model"):
+        jax_train.main(argv + [f"run_dir={tmp_path}/jax"])
+    with pytest.raises(ValueError, match="do not match the configured model"):
+        port_train.main(argv + [CPU, f"run_dir={tmp_path}/port"])
+
+
+def _leaves_with_path(tree):
+    from dreamllm_tpu_torch.train.tree import tree_leaves_with_path
+
+    return list(tree_leaves_with_path(tree))
 
 
 def test_train_entry_runs_as_a_module(tmp_path):

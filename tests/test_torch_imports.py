@@ -166,3 +166,12 @@ def test_package_import_loads_no_jax_and_builds_nothing():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
+
+
+def test_walk_covers_the_converters_and_t2i_evaluation():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("convert/cli", "convert/hf_llama", "convert/hf_clip", "convert/hf_sd",
+                "convert/inception", "convert/dreamllm_checkpoint", "eval/fid",
+                "eval/text2img", "utils/comm", "data/prefetch", "data/native_loader",
+                "projects/dreamllm/eval_t2i"):
+        assert f"dreamllm_tpu_torch/{mod}.py" in names
